@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (written for an
 H100): builds the CUDA kernels from `tts_arabic_torch/csrc`, holds every
 kernel variant against its plain PyTorch version on the card, drives
-`FastPitch2Wave.tts()` at full width, and checks what comes out.
+`FastPitch2Wave.tts()` and FastPitch training (`apps.train_fastpitch`) at
+full width, and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -24,21 +25,51 @@ Phases, one line each (and a table for the kernel checks):
    after
 5. whole-generator check: f32 tts_single on 2 prompts through the kernels,
    then with the generator's ResBlocks on `resblock1_plain`; SNR > 40 dB
+   (then a synthetic corpus for the training slice is written to a temp
+   dir under build/ from seed 0: the first 60 lines of
+   data/train_phon.txt with at most 140 symbols and 10 of
+   data/test_phon.txt, each a voiced tone with its own f0 contour plus
+   noise, 7 mel frames per symbol, its true f0 in a `pitch_dict.npz`, and
+   a config with configs/nawar_fp.yaml's values)
+6. MAS kernel checks: `ops.mas.mas_fused` against `align.mas.mas` on the
+   card, at each collated shape of the training run's batches (their own
+   lengths, random log-attention) and at [10, 1024, 256], a ragged
+   [4, 1000, 300] with rows where out_len < in_len, and [6, 1850, 368];
+   max |kernel - plain| must be 0 and the durations equal. At the training
+   batches: the kernel's ms, the plain version's ms and the byte bound
+7. training: `apps.train_fastpitch.main` at full width (FastPitchConfig())
+   on that corpus, one epoch (6 steps of batch 10, T_mel <= 1024), then
+   validation; PyTorch's default precision (cuDNN TF32 on, matmul TF32
+   off). The launch counters are set to 0 just before and read just after.
+   Checks: finite losses, every trained parameter moved, MAS launches =
+   steps + validation batches, the MAS calls' shapes = phase 6's, and the
+   checkpoint reloads into a fresh Trainer with identical parameters.
+   Prints each step's loss and time, steps/s over steps 2-6 (host clock,
+   synchronized), the MAS kernel's share of those steps (phase 6's times)
+   and the peak device memory
+8. whole-step check: one f32 train step (TF32 off, cuDNN deterministic)
+   from one state, batch and dropout seed, with MAS on the kernel and then
+   on the plain version; equal losses, gradients within 1e-5 of their norm
 
-Then nvidia-smi's line again, the kernels' JSON record (its ms, plain_ms
-and bound_ms summed over the main path's bf16 launches of each kernel, as
-timed in phase 3), and last the result line. Any failure raises and the exit code is not 0; without a CUDA
-device the script exits 1 before printing any result.
+Then nvidia-smi's line again, the kernels' JSON record (for each ResBlock
+variant its ms, plain_ms and bound_ms summed over the serving path's bf16
+launches, as timed in phase 3; for MAS the same sums over the training
+run's launches, as timed in phase 6), and last the result line. Any
+failure raises and the exit code is not 0; without a CUDA device the
+script exits 1 before printing any result.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import json
+import math
 import pathlib
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -61,6 +92,14 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 WIDE_CHANNELS = (256, 128, 64)
 NARROW_CHANNELS = (64, 32)
 STAGE_T = {256: 8, 128: 64, 64: 128, 32: 256}   # samples per mel frame
+# the training slice's synthetic corpus
+N_TRAIN, N_VAL = 60, 10
+MAX_SYMBOLS = 140       # 980 frames at most: every utterance in bucket 1
+FRAMES_PER_SYMBOL = 7
+SAMPLE_RATE, HOP = 22050, 256
+# MAS checks beyond the training batches: [B, T_mel, T_txt]
+MAS_SHAPES = ((10, 1024, 256), (4, 1000, 300), (6, 1850, 368))
+GRAD_TOL = 1e-5         # phase 8: |g_kernel - g_plain| / |g_plain|
 
 
 def log(msg: str) -> None:
@@ -85,6 +124,11 @@ def set_tf32(on: bool) -> None:
     torch.backends.cuda.matmul.allow_tf32 = on
 
 
+def tf32_state() -> str:
+    return (f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
+            f"cuDNN {torch.backends.cudnn.allow_tf32}")
+
+
 def phase_device() -> tuple[str, str]:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -105,8 +149,9 @@ def phase_build() -> None:
     took = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in build.build_log.splitlines()
              if re.search(r"registers|spill", ln)]
-    log(f"[2 build] resblock1.cu -> sm_90a in {took:.2f} s "
-        f"(nvcc {build.build_seconds:.2f} s)")
+    srcs = ", ".join(p.name for p in sorted(build.CSRC.glob("*.cu")))
+    log(f"[2 build] {srcs} -> sm_90a in {took:.2f} s "
+        f"(nvcc {build.build_seconds:.2f} s, one process per source)")
     for ln in ptxas:
         log(f"    ptxas: {ln}")
 
@@ -260,15 +305,21 @@ def warm_run(pipe, prompts: list[str]) -> list[tuple]:
 
 def phase_main_path(pipe, prompts: list[str], shapes: list[tuple],
                     kernel_ms: float, smi: str) -> dict:
+    from tts_arabic_torch.ops import mas as mas_ops
     from tts_arabic_torch.ops import resblock as rb
     torch.cuda.reset_peak_memory_stats()
     with generator_calls() as calls:
         rb.reset_launches()
+        mas_ops.reset_launches()
         t0 = time.perf_counter()
         waves = pipe.tts(prompts, batch_size=BATCH, denoise=0.005)
         wall = time.perf_counter() - t0
         launches = dict(rb.LAUNCHES)
+        mas_launches = mas_ops.LAUNCHES["mas"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if mas_launches:
+        raise AssertionError(f"tts() launched the MAS kernel {mas_launches} "
+                             "times: MAS is training-only")
 
     mels = pipe.model.ttmel(prompts, batch_size=BATCH)
     hop = pipe.hop_length
@@ -296,7 +347,8 @@ def phase_main_path(pipe, prompts: list[str], shapes: list[tuple],
     log(f"[4 main path] tts() of {len(prompts)} prompts, batch {BATCH}, "
         f"bf16: {audio_s:.2f} s of audio in {wall:.3f} s wall = "
         f"{audio_s / wall:.1f}x real time | generator calls (mel shapes) "
-        f"{calls} | launches {launches} | ResBlock kernels at these shapes "
+        f"{calls} | launches {launches}, mas 0 | ResBlock kernels at these "
+        f"shapes "
         f"(phase 3): {kernel_ms:.1f} ms = {kernel_ms / 10 / wall:.0f}% of "
         f"the wall | peak memory {peak_gb:.2f} GB | {smi}")
     return launches
@@ -325,6 +377,336 @@ def phase_generator_check(smi: str) -> None:
         raise AssertionError(f"SNR {min(snrs):.1f} dB <= 40")
 
 
+# ---- the training slice ------------------------------------------------------
+
+def _voiced_tone(rng, n_frames: int):
+    """A voiced tone (fundamental + 2nd harmonic) with a slow f0 contour
+    around a per-utterance base, plus noise; returns (wave, f0 at each mel
+    frame's centre)."""
+    n = n_frames * HOP
+    t = np.arange(n) / SAMPLE_RATE
+    f0 = rng.uniform(100.0, 170.0) * (1.0 + 0.08 * np.sin(
+        2 * np.pi * rng.uniform(0.3, 1.2) * t + rng.uniform(0, 2 * np.pi)))
+    phase = 2 * np.pi * np.cumsum(f0) / SAMPLE_RATE
+    wave = (0.3 * np.sin(phase) + 0.1 * np.sin(2 * phase)
+            + 0.02 * rng.standard_normal(n))
+    # frame i spans samples [i*HOP - 384, i*HOP + 640) (reflect-padded)
+    centres = np.arange(n_frames) * HOP + HOP // 2
+    return wave.astype(np.float32), f0[centres].astype(np.float32)
+
+
+def write_corpus(root: pathlib.Path) -> pathlib.Path:
+    """The synthetic corpus and its config (see the module docstring);
+    returns the config's path."""
+    from tts_arabic_torch import text
+    from tts_arabic_torch.audio.io import save_wav
+    from tts_arabic_torch.data.dataset import (DEFAULT_LABEL_PATTERN,
+                                               parse_label_line)
+    from tts_arabic_torch.runtime.config import load_yaml
+    rng = np.random.default_rng(0)
+    wavs = root / "wavs"
+    wavs.mkdir(parents=True)
+    f0_dict = {}
+    for split, src, n in (("train", "train_phon.txt", N_TRAIN),
+                          ("test", "test_phon.txt", N_VAL)):
+        lines = []
+        for line in (ROOT / "data" / src).read_text().splitlines():
+            if len(lines) == n:
+                break
+            if not line.strip():
+                continue
+            phonemes, name = parse_label_line(DEFAULT_LABEL_PATTERN, line)
+            n_sym = len(text.tokens_to_ids(text.phonemes_to_tokens(phonemes)))
+            if n_sym > MAX_SYMBOLS:
+                continue
+            wave, f0 = _voiced_tone(rng, FRAMES_PER_SYMBOL * n_sym)
+            save_wav(wavs / name, wave, SAMPLE_RATE)
+            f0_dict[name] = f0
+            lines.append(line)
+        if len(lines) != n:
+            raise AssertionError(f"{src}: {len(lines)} lines, expected {n}")
+        (root / f"{split}.txt").write_text("\n".join(lines) + "\n")
+    np.savez(root / "pitch_dict.npz", **f0_dict)
+    cfg = load_yaml(ROOT / "configs" / "nawar_fp.yaml")
+    cfg.update(log_dir=str(root / "logs"), checkpoint_dir=str(root / "ckpt"),
+               train_wavs_path=str(wavs), train_labels=str(root / "train.txt"),
+               test_wavs_path=str(wavs), test_labels=str(root / "test.txt"),
+               f0_dict_path=str(root / "pitch_dict.npz"))
+    path = root / "nawar_fp_smoke.yaml"
+    path.write_text("".join(f"{k}: {json.dumps(v)}\n" for k, v in cfg.items()))
+    return path
+
+
+def training_batches(config_path) -> tuple[list, list]:
+    """The collated batches of the training run, in its order (the CLI's
+    datasets and buckets, with the reshuffle `Trainer.fit` makes at the
+    start of the epoch), and its validation batches."""
+    from tts_arabic_torch.data import (ArabDatasetFastPitch, DynBatchDataset,
+                                       collate_fastpitch)
+    from tts_arabic_torch.runtime.config import get_config
+    cfg = get_config(config_path)
+    out = []
+    for labels, wavs, epoch_shuffle in (
+            (cfg.train_labels, cfg.train_wavs_path, True),
+            (cfg.test_labels, cfg.test_wavs_path, False)):
+        ds = ArabDatasetFastPitch(
+            labels, wavs, label_pattern=cfg.label_pattern,
+            f0_dict_path=cfg.get_path("f0_dict_path"), f0_mean=cfg.f0_mean,
+            f0_std=cfg.f0_std)
+        dyn = DynBatchDataset(ds, max_lengths=cfg.max_lengths,
+                              batch_sizes=cfg.batch_sizes)
+        if epoch_shuffle:
+            dyn.shuffle()
+        out.append([collate_fastpitch(dyn[i]) for i in range(len(dyn))])
+    return out[0], out[1]
+
+
+def mas_bound_ms(shape, in_lens, out_lens) -> float:
+    """Least time for one MAS call: the valid region of log_attn read once
+    (what this call's lengths need), the [B, T_mel, T_txt] f32 output and
+    the lengths written/read once, at the memory rate. The operations
+    (add, max, compare per valid cell) take under 1% of that at the f32
+    rate, so the bytes bound it."""
+    B, T_mel, T_txt = shape
+    valid = sum(min(int(o), T_mel) * int(i) for i, o in zip(in_lens, out_lens))
+    return (4 * valid + 4 * B * T_mel * T_txt + 8 * B) / PEAK_BYTES * 1e3
+
+
+def _mas_inputs(shape, gen, in_lens=None, out_lens=None):
+    """Random log-softmaxed scores on the card; lengths as given, else
+    random in [1, T] with row 0 at full size and, where the shape allows,
+    a row with out_len < in_len (no monotonic path)."""
+    B, T_mel, T_txt = shape
+    log_attn = torch.log_softmax(3.0 * torch.randn(
+        shape, generator=gen, device="cuda"), dim=-1)
+    if in_lens is None:
+        in_lens = torch.randint(1, T_txt + 1, (B,), generator=gen,
+                                device="cuda")
+        out_lens = torch.randint(1, T_mel + 1, (B,), generator=gen,
+                                 device="cuda")
+        in_lens[0], out_lens[0] = T_txt, T_mel
+        if B > 1:
+            in_lens[1], out_lens[1] = T_txt, max(1, min(T_mel, T_txt) - 7)
+    else:
+        in_lens = torch.as_tensor(in_lens, device="cuda")
+        out_lens = torch.as_tensor(out_lens, device="cuda")
+    return log_attn, in_lens.to(torch.int32), out_lens.to(torch.int32)
+
+
+def _mas_check(inputs, label: str) -> float:
+    from tts_arabic_torch.align.mas import mas as mas_plain
+    from tts_arabic_torch.ops import mas as mas_ops
+    log_attn, in_lens, out_lens = inputs
+    got = mas_ops.mas_fused(*inputs)
+    ref = mas_plain(*inputs)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    if err != 0.0 or not torch.equal(got.sum(1), ref.sum(1)):
+        raise AssertionError(f"MAS {label}: kernel differs from the plain "
+                             f"version (max abs err {err})")
+    frames = torch.clamp(out_lens, max=log_attn.shape[1]).to(got.dtype)
+    if not torch.equal(got.sum((1, 2)), frames):
+        raise AssertionError(f"MAS {label}: not one text position per frame")
+    return err
+
+
+def phase_mas_checks(train: list, val: list) -> dict:
+    """Bit-equality at every shape; at the training run's batches also the
+    kernel's time, the plain version's and the bound."""
+    from tts_arabic_torch.align.mas import mas as mas_plain
+    from tts_arabic_torch.ops import mas as mas_ops
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    log("[6 MAS kernel checks] kernel vs plain MAS on the card, err = "
+        "max|kernel - plain| (must be 0), durations equal")
+    log(f"    {'case':12} {'B':>3} {'T_mel':>6} {'T_txt':>6} {'err':>5} "
+        f"{'ms':>8} {'plain_ms':>9} {'bound_ms':>9}")
+    rows, max_err = [], 0.0
+    for label, batch in ([(f"train {i}", b) for i, b in enumerate(train)]
+                         + [(f"val {i}", b) for i, b in enumerate(val)]):
+        shape = tuple(batch["attn_prior"].shape)
+        inputs = _mas_inputs(shape, gen, batch["token_lens"],
+                             batch["mel_lens"])
+        err = _mas_check(inputs, label)
+        max_err = max(max_err, err)
+        row = dict(label=label, shape=shape,
+                   ms=cuda_ms(lambda: mas_ops.mas_fused(*inputs)),
+                   plain_ms=cuda_ms(lambda: mas_plain(*inputs)),
+                   bound_ms=mas_bound_ms(shape, batch["token_lens"],
+                                         batch["mel_lens"]))
+        rows.append(row)
+        log(f"    {label:12} {shape[0]:>3} {shape[1]:>6} {shape[2]:>6} "
+            f"{err:>5g} {row['ms']:>8.3f} {row['plain_ms']:>9.3f} "
+            f"{row['bound_ms']:>9.5f}")
+    for label, shape in zip(("full", "ragged", "bucket 3"), MAS_SHAPES):
+        err = _mas_check(_mas_inputs(shape, gen), label)
+        max_err = max(max_err, err)
+        log(f"    {label:12} {shape[0]:>3} {shape[1]:>6} {shape[2]:>6} "
+            f"{err:>5g}")
+    torch.cuda.empty_cache()
+    return dict(rows=rows, max_abs_err=max_err)
+
+
+def _unmoved(trained: torch.nn.Module, init: torch.nn.Module) -> list:
+    """Names of the parameters that did not move from `init`."""
+    init_p = dict(init.named_parameters())
+    return [n for n, p in trained.named_parameters()
+            if torch.equal(p.detach().cpu(), init_p[n].detach())]
+
+
+def phase_training(config_path, train: list, val: list, mas: dict,
+                   smi: str) -> dict:
+    from tts_arabic_torch.apps import train_fastpitch
+    from tts_arabic_torch.models.fastpitch import FastPitch, FastPitchConfig
+    from tts_arabic_torch.models.layers import init_weights
+    from tts_arabic_torch.ops import mas as mas_ops
+    from tts_arabic_torch.ops import resblock as rb
+    from tts_arabic_torch.train import steps
+    from tts_arabic_torch.train.trainer import Trainer
+    torch.backends.cudnn.allow_tf32 = True          # PyTorch's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    times, losses, mas_shapes = [], [], []
+    make_step, fused = train_fastpitch.make_fastpitch_train_step, \
+        mas_ops.mas_fused
+
+    def timed_step(**kw):
+        step = make_step(**kw)
+
+        def run(state, batch, seed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            meta = step(state, batch, seed)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(meta["loss"]))
+            return meta
+        return run
+
+    def recorded(log_attn, in_lens, out_lens):
+        mas_shapes.append(tuple(log_attn.shape))
+        return fused(log_attn, in_lens, out_lens)
+
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(train_fastpitch, "make_fastpitch_train_step",
+                           timed_step), \
+            mock.patch.object(mas_ops, "mas_fused", recorded):
+        rb.reset_launches()
+        mas_ops.reset_launches()
+        trainer = train_fastpitch.main([
+            "--config", str(config_path), "--epochs", "1", "--log-every",
+            "1", "--device", "cuda"])
+        torch.cuda.synchronize()
+        launches = {**rb.LAUNCHES, **mas_ops.LAUNCHES}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    n_steps = len(train)
+    for i, (loss, t) in enumerate(zip(losses, times)):
+        log(f"    step {i + 1}: loss {loss:.4f}, {t * 1e3:.1f} ms")
+    if len(times) != n_steps or trainer.state.step != n_steps:
+        raise AssertionError(f"{len(times)} steps timed, state at step "
+                             f"{trainer.state.step}, expected {n_steps}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    want = [tuple(b["attn_prior"].shape) for b in train + val]
+    if mas_shapes != want:
+        raise AssertionError(f"MAS calls at {mas_shapes}, phase 6 checked "
+                             f"{want}")
+    if launches["mas"] != len(train) + len(val):
+        raise AssertionError(f"MAS launches {launches['mas']}, expected "
+                             f"{len(train)} steps + {len(val)} validation "
+                             "batches")
+    cfg = trainer.state.model.config
+    init = init_weights(FastPitch(FastPitchConfig()), trainer.seed)
+    still = _unmoved(trainer.state.model, init)
+    if any(not n.startswith("attention.attn_proj") for n in still):
+        raise AssertionError(f"parameters that did not move: {still}")
+    rows = [json.loads(ln) for ln in (pathlib.Path(
+        trainer.logger.log_dir) / "metrics.jsonl").read_text().splitlines()]
+    val_loss = [r["val/loss"] for r in rows if "val/loss" in r]
+    if len(val_loss) != 1 or not math.isfinite(val_loss[0]):
+        raise AssertionError(f"validation losses {val_loss}")
+
+    fresh_model = FastPitch(cfg).to("cuda")
+    fresh = Trainer(steps.make_fastpitch_train_step(device="cuda"),
+                    steps.TrainState(fresh_model,
+                                     steps.make_optimizer(fresh_model)),
+                    log_dir=pathlib.Path(config_path).parent / "logs_restore",
+                    checkpoint_dir=trainer.ckpt.directory, device="cuda")
+    restored = fresh.restore()
+    fresh.close()
+    trained_sd = trainer.state.model.state_dict()
+    differ = [n for n, v in fresh_model.state_dict().items()
+              if not torch.equal(v, trained_sd[n])]
+    if restored != n_steps or differ:
+        raise AssertionError(f"checkpoint restored step {restored}, "
+                             f"entries that differ: {differ}")
+
+    steady = times[1:]
+    mas_ms = sum(r["ms"] for r in mas["rows"][1:n_steps])
+    # a batch shape the run has not met before costs more (cuDNN plans,
+    # allocator growth): the steps at a shape met before, apart
+    repeat = [t for i, t in enumerate(times) if want[i] in want[:i]]
+    repeat_msg = (f"{len(repeat)} at a shape met before: "
+                  f"{sum(repeat) / len(repeat) * 1e3:.1f} ms a step"
+                  if repeat else "no shape met twice")
+    log(f"[7 training] train_fastpitch.main, FastPitchConfig() (d_model "
+        f"{cfg.d_model}, {cfg.enc_n_layers}+{cfg.dec_n_layers} FFT layers, "
+        f"filter {cfg.enc_filter_size}), nawar_fp.yaml recipe, f32, "
+        f"{tf32_state()}: {n_steps} steps of batch "
+        f"{sorted({s[0] for s in want[:n_steps]})} (T_mel <= "
+        f"{max(s[1] for s in want[:n_steps])}) + {len(val)} validation "
+        f"batch(es), val loss {val_loss[0]:.4f} | steps 2-{n_steps}: "
+        f"{len(steady) / sum(steady):.2f} steps/s, "
+        f"{sum(steady) / len(steady) * 1e3:.1f} ms a step ({repeat_msg}), "
+        f"MAS kernel "
+        f"{mas_ms / len(steady):.3f} ms a step = "
+        f"{100 * mas_ms / (sum(steady) * 1e3):.2f}% (phase 6 times) | "
+        f"launches {launches} | checkpoint step {restored} reloads equal | "
+        f"peak memory {peak_gb:.2f} GB | {smi}")
+    return launches
+
+
+def phase_step_check(batch: dict, smi: str) -> None:
+    from tts_arabic_torch.align.mas import mas as mas_plain
+    from tts_arabic_torch.models.fastpitch import FastPitch
+    from tts_arabic_torch.models.layers import init_weights
+    from tts_arabic_torch.ops import mas as mas_ops
+    from tts_arabic_torch.train import steps
+    set_tf32(False)
+    torch.backends.cudnn.deterministic = True
+    base = init_weights(FastPitch(), 0).to("cuda")
+    runs = {}
+    for route in ("kernel", "plain"):
+        model = copy.deepcopy(base)
+        state = steps.TrainState(model, steps.make_optimizer(model))
+        step = steps.make_fastpitch_train_step(device="cuda")
+        plain = (mock.patch.object(mas_ops, "mas_fused", mas_plain)
+                 if route == "plain" else contextlib.nullcontext())
+        mas_ops.reset_launches()
+        with plain:
+            meta = step(state, batch, 0)
+        torch.cuda.synchronize()
+        grads = {n: p.grad.detach().clone()
+                 for n, p in model.named_parameters() if p.grad is not None}
+        runs[route] = (float(meta["loss"]), grads, mas_ops.LAUNCHES["mas"])
+    torch.backends.cudnn.deterministic = False
+    (loss_k, g_k, n_k), (loss_p, g_p, n_p) = runs["kernel"], runs["plain"]
+    diff = math.sqrt(sum(float((g_k[n] - g).pow(2).sum())
+                         for n, g in g_p.items()))
+    norm = math.sqrt(sum(float(g.pow(2).sum()) for g in g_p.values()))
+    log(f"[8 whole-step check] one f32 train step, {tf32_state()}, cuDNN "
+        f"deterministic, batch {tuple(batch['attn_prior'].shape)}: loss "
+        f"{loss_k!r} (MAS kernel, {n_k} launch) vs {loss_p!r} (plain, "
+        f"{n_p}) | |g_kernel - g_plain| = {diff:.3e} of |g| = {norm:.3e} "
+        f"(<= {GRAD_TOL:.0e}) over {len(g_p)} tensors | {smi}")
+    if (n_k, n_p) != (1, 0):
+        raise AssertionError(f"MAS launches kernel {n_k}, plain {n_p}")
+    if loss_k != loss_p or g_k.keys() != g_p.keys():
+        raise AssertionError("the two steps' losses or gradients differ")
+    if not diff <= GRAD_TOL * norm:
+        raise AssertionError(f"gradient difference {diff} > {GRAD_TOL} x "
+                             f"{norm}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs on the GPU",
@@ -345,6 +727,15 @@ def main() -> int:
                                sum(s["ms"] for s in summary.values()), smi)
     del pipe
     phase_generator_check(smi)
+    build_dir = ROOT / "build"      # git-ignored, inside the checkout
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="smoke_corpus_",
+                                     dir=build_dir) as tmp:
+        config_path = write_corpus(pathlib.Path(tmp))
+        train, val = training_batches(config_path)
+        mas = phase_mas_checks(train, val)
+        train_launches = phase_training(config_path, train, val, mas, smi)
+        phase_step_check(train[0], smi)
     replaces = {
         "resblock1_wide": "tts_arabic_tpu/ops/hifigan_pallas.py:153",
         "resblock1_narrow": "tts_arabic_tpu/ops/hifigan_pallas.py:547",
@@ -360,6 +751,17 @@ def main() -> int:
             "bound_by": ("operations" if s["t_ops"] >= s["t_bytes"]
                          else "bytes"),
             "library_ms": None})
+    # one MAS launch per training step and validation batch, each timed at
+    # its own batch's shape in phase 6
+    kernels.append({
+        "name": "mas", "route": "cuda",
+        "source": "tts_arabic_torch/csrc/mas.cu",
+        "replaces": "tts_arabic_tpu/ops/mas_pallas.py:98",
+        "launches": train_launches["mas"],
+        "max_abs_err": mas["max_abs_err"],
+        **{k: sum(r[k] for r in mas["rows"])
+           for k in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": "bytes", "library_ms": None})
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -84,3 +84,106 @@ def test_unsupported_width_raises(cuda):
     x, w1, b1, w2, b2 = _case(48, 3, 50, torch.float32)
     with pytest.raises(ValueError, match="no resblock1_wide kernel"):
         rb.resblock1(x, w1, b1, w2, b2, 3, DIL)
+
+
+def _mas_case(B, T_mel, T_txt, seed):
+    """Log-softmaxed random scores; random lengths in [1, T], the first row
+    at full size and, where T_mel < T_txt allows it, rows with out_len <
+    in_len (no monotonic path)."""
+    g = torch.Generator().manual_seed(seed)
+    log_attn = torch.log_softmax(
+        3.0 * torch.randn((B, T_mel, T_txt), generator=g), dim=-1)
+    in_lens = torch.randint(1, T_txt + 1, (B,), generator=g)
+    out_lens = torch.randint(1, T_mel + 1, (B,), generator=g)
+    in_lens[0], out_lens[0] = T_txt, T_mel
+    if B > 1:
+        in_lens[-1] = T_txt
+        out_lens[-1] = max(1, min(T_mel, T_txt - 1))
+    return log_attn, in_lens, out_lens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T_mel,T_txt", [
+    (3, 50, 7), (4, 300, 33), (2, 64, 1), (2, 1, 9), (4, 1000, 300),
+    (5, 777, 257), (6, 1850, 368), (2, 130, 1024), (3, 20, 64)])
+def test_mas_kernel_bit_equal_to_plain(cuda, B, T_mel, T_txt):
+    from tts_arabic_torch.align.mas import mas as mas_plain
+    from tts_arabic_torch.ops import mas as mas_ops
+    log_attn, in_lens, out_lens = _mas_case(B, T_mel, T_txt, seed=T_mel)
+    ref = mas_plain(log_attn, in_lens, out_lens)
+    before = mas_ops.LAUNCHES["mas"]
+    got = mas_ops.mas_fused(log_attn.cuda(), in_lens.cuda(),
+                            out_lens.cuda())
+    torch.cuda.synchronize()
+    assert mas_ops.LAUNCHES["mas"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert torch.equal(got.cpu(), ref)
+    # and against the plain version run on the card
+    assert torch.equal(got, mas_plain(log_attn.cuda(), in_lens.cuda(),
+                                      out_lens.cuda()))
+
+
+@pytest.mark.cuda
+def test_mas_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from tts_arabic_torch.ops import mas as mas_ops
+    lens = torch.ones(2, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="T_txt <= 1024"):
+        mas_ops.mas_fused(torch.zeros((2, 4, 1025), device="cuda"), lens,
+                          lens)
+    with pytest.raises(ValueError, match="contiguous"):
+        mas_ops.mas_fused(torch.zeros((2, 8, 4), device="cuda").transpose(
+            1, 2), lens, lens)
+    with pytest.raises(TypeError, match="float32"):
+        mas_ops.mas_fused(torch.zeros((2, 4, 8), device="cuda",
+                                      dtype=torch.float64), lens, lens)
+
+
+@pytest.mark.cuda
+def test_train_step_runs_mas_on_the_kernel(cuda):
+    """A tiny FastPitch train step on the card launches the MAS kernel once
+    and gives the loss of the same step with MAS on the plain version."""
+    import contextlib
+    import copy
+    from unittest import mock
+
+    import numpy as np
+
+    from tts_arabic_torch.align.mas import mas as mas_plain
+    from tts_arabic_torch.models.fastpitch import FastPitch, FastPitchConfig
+    from tts_arabic_torch.models.layers import init_weights
+    from tts_arabic_torch.ops import mas as mas_ops
+    from tts_arabic_torch.train import steps
+    rng = np.random.default_rng(0)
+    B, T_txt, T_mel = 3, 32, 192
+    token_lens = np.array([32, 20, 9], np.int32)
+    mel_lens = np.array([192, 150, 40], np.int32)
+    tokens = rng.integers(1, 40, (B, T_txt)).astype(np.int32)
+    mel = rng.standard_normal((B, T_mel, 80)).astype(np.float32) - 4.0
+    for i, (nt, nm) in enumerate(zip(token_lens, mel_lens)):
+        tokens[i, nt:] = 0
+        mel[i, nm:] = 0.0
+    batch = {"tokens": tokens, "token_lens": token_lens, "mel_tgt": mel,
+             "mel_lens": mel_lens,
+             "pitch_dense": rng.standard_normal((B, 1, T_mel)).astype(
+                 np.float32),
+             "energy_dense": np.abs(rng.standard_normal((B, T_mel))).astype(
+                 np.float32),
+             "attn_prior": np.full((B, T_mel, T_txt), 1.0 / T_txt,
+                                   np.float32)}
+    cfg = FastPitchConfig(d_model=64, enc_n_layers=2, dec_n_layers=2,
+                          enc_filter_size=128, dec_filter_size=128)
+    base = init_weights(FastPitch(cfg), 0).cuda()
+    losses = []
+    for plain in (False, True):
+        model = copy.deepcopy(base)
+        state = steps.TrainState(model, steps.make_optimizer(model))
+        before = mas_ops.LAUNCHES["mas"]
+        with (mock.patch.object(mas_ops, "mas_fused", mas_plain) if plain
+              else contextlib.nullcontext()):
+            meta = steps.make_fastpitch_train_step(device="cuda")(
+                state, batch, 0)
+        torch.cuda.synchronize()
+        assert mas_ops.LAUNCHES["mas"] == before + (0 if plain else 1)
+        assert state.step == 1 and torch.isfinite(meta["loss"])
+        losses.append(float(meta["loss"]))
+    assert losses[0] == losses[1]

@@ -34,6 +34,25 @@ def test_import_leaves_jax_out_of_sys_modules():
     assert bad == "[]", bad
 
 
+def test_module_walk_reaches_every_sub_package():
+    import importlib
+    import pkgutil
+
+    import tts_arabic_torch
+    names = {m.name for m in pkgutil.walk_packages(
+        tts_arabic_torch.__path__, "tts_arabic_torch.")}
+    for sub in ("align", "apps", "audio", "data", "eval", "infer", "models",
+                "ops", "runtime", "text", "train", "vocoder"):
+        assert f"tts_arabic_torch.{sub}" in names, sub
+    for mod in ("align.mas", "align.prior", "apps.train_fastpitch",
+                "data.dataset", "data.f0", "eval.alignment", "ops.ctc",
+                "ops.mas", "runtime.checkpoint", "runtime.config",
+                "runtime.logging", "train.losses", "train.steps",
+                "train.trainer"):
+        assert f"tts_arabic_torch.{mod}" in names, mod
+        importlib.import_module(f"tts_arabic_torch.{mod}")
+
+
 def test_no_source_file_imports_jax_or_the_jax_package():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) >= 15
@@ -58,6 +77,35 @@ def test_entry_points_raise_without_cuda(entry, monkeypatch):
         getattr(infer, entry)()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         getattr(infer, entry)(device="cuda")
+
+
+def test_training_cli_raises_without_cuda(monkeypatch):
+    """`--device` defaults to cuda; without a card the CLI raises before it
+    reads its config or its corpus."""
+    from tts_arabic_torch.apps import train_fastpitch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_fastpitch.main(["--config", "no/such/config.yaml"])
+
+
+@pytest.mark.parametrize("entry", ["train_step", "eval_step", "Trainer"])
+def test_training_entry_points_raise_without_cuda(entry, monkeypatch,
+                                                  tmp_path):
+    from tts_arabic_torch.train import steps
+    from tts_arabic_torch.train.trainer import Trainer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    make = {"train_step": steps.make_fastpitch_train_step,
+            "eval_step": steps.make_fastpitch_eval_step,
+            "Trainer": lambda **kw: Trainer(
+                None, None, log_dir=tmp_path / "logs",
+                checkpoint_dir=tmp_path / "ckpt", **kw)}[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make(device=None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make(device="cuda")
+    assert not (tmp_path / "logs").exists()
 
 
 def test_resblock_wrapper_refuses_other_devices():

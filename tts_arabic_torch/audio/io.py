@@ -1,11 +1,39 @@
-"""Wav output and mu-law companding (the serving helpers of the JAX
-package's `audio/io.py`)."""
+"""Wav input and output, resampling and mu-law companding (the serving and
+dataset helpers of the JAX package's `audio/io.py`)."""
 from __future__ import annotations
 
 import math
 
 import numpy as np
 import torch
+
+
+def load_wav(path, target_sr: int | None = None):
+    """Read a wav as float32 in [-1, 1] (multichannel downmixed);
+    optionally resample. Returns (wave, sample_rate)."""
+    from scipy.io import wavfile
+    sr, data = wavfile.read(path)
+    if data.dtype == np.int16:
+        x = data.astype(np.float32) / 32768.0
+    elif data.dtype == np.int32:
+        x = data.astype(np.float32) / 2147483648.0
+    elif data.dtype == np.uint8:
+        x = (data.astype(np.float32) - 128.0) / 128.0
+    else:
+        x = data.astype(np.float32)
+    if x.ndim == 2:
+        x = x.mean(axis=1)
+    if target_sr is not None and sr != target_sr:
+        x = resample(x, sr, target_sr)
+        sr = target_sr
+    return x, sr
+
+
+def resample(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
+    """Polyphase resampling by the reduced ratio target_sr / orig_sr."""
+    from scipy.signal import resample_poly
+    g = math.gcd(orig_sr, target_sr)
+    return resample_poly(x, target_sr // g, orig_sr // g).astype(np.float32)
 
 
 def save_wav(path, x, sample_rate: int = 22050):

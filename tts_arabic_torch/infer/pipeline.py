@@ -32,6 +32,7 @@ from ..audio.io import mulaw_encode
 from ..models.convert import fold_weight_norm, load_reference_pth, to_tensors
 from ..models.fastpitch import FastPitch, FastPitchConfig
 from ..models.layers import init_weights
+from ..runtime.device import resolve_device
 from ..vocoder import denoiser as denoiser_mod
 from ..vocoder.hifigan import Generator, HiFiGANConfig, chunked_vocode
 
@@ -57,21 +58,6 @@ def _pad_ids(ids_list: Sequence[np.ndarray], length: int) -> np.ndarray:
     for i, ids in enumerate(ids_list):
         out[i, : len(ids)] = ids
     return out
-
-
-def resolve_device(device=None) -> torch.device:
-    """None -> the CUDA card, which must exist; anything else as given."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: the pipelines run on the "
-                               "card by default; pass device='cpu' to run "
-                               "on the CPU")
-        return torch.device("cuda")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but CUDA is not "
-                           "available")
-    return device
 
 
 @contextlib.contextmanager

@@ -1,14 +1,15 @@
-"""FastPitch acoustic model, inference half (torch counterpart of the JAX
-package's `models/fastpitch.py`): 6+6 FFT transformer encoder/decoder,
-conv TemporalPredictors for log-duration / pitch / energy, pitch and energy
+"""FastPitch acoustic model (torch counterpart of the JAX package's
+`models/fastpitch.py`): 6+6 FFT transformer encoder/decoder, conv
+TemporalPredictors for log-duration / pitch / energy, pitch and energy
 embeddings added to the encoder output, an interval-matmul length
 regulator and a Linear mel projection.
 
 Inference composes as `encode_infer` (text -> durations + conditioned
 encoder state) and `decode` (length-regulate -> decoder -> mel), so the
 pipeline can pick the decoder's mel bucket from the predicted lengths.
-The soft aligner's weights are held (reference checkpoints load strictly);
-its training forward comes with the training slice.
+Training runs `align_attention` (the ConvAttention soft aligner), MAS on
+its output (`align.mas_durations`, the CUDA kernel on the card), then
+`forward_train` with the hard durations, as the JAX train step does.
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ from .layers import (FFTransformer, TemporalPredictor, conv1d_same, linear)
 @dataclasses.dataclass(frozen=True)
 class FastPitchConfig:
     """Hyperparameters (reference `models/fastpitch/__init__.py:3-41`).
-    Dropout rates are kept for checkpoint configs; inference ignores them."""
+    The dropout rates apply in training only (`forward_train` with a
+    generator)."""
     n_mel_channels: int = 80
     n_symbols: int = 40
     padding_idx: int = 0
@@ -144,10 +146,34 @@ class _ConvNorm(nn.Module):
         self.conv = nn.Conv1d(c_in, c_out, kernel_size)
 
 
+def average_by_durations(values: torch.Tensor,
+                         durations: torch.Tensor) -> torch.Tensor:
+    """Average frame-level values over each token's duration span
+    (reference `average_pitch`, model.py:93-111).
+
+    values: [B, n_formants, T_mel] (zeros are excluded from the average);
+    durations: [B, T_text]. Returns [B, n_formants, T_text]."""
+    ends = torch.cumsum(durations, dim=1).to(torch.long)
+    starts = nn.functional.pad(ends[:, :-1], (1, 0))
+    nonzero_cums = nn.functional.pad(
+        torch.cumsum((values != 0.0).to(values.dtype), dim=2), (1, 0))
+    value_cums = nn.functional.pad(torch.cumsum(values, dim=2), (1, 0))
+
+    def gather(c, idx):
+        return torch.gather(c, 2, idx[:, None, :].expand(-1, c.shape[1], -1))
+
+    sums = gather(value_cums, ends) - gather(value_cums, starts)
+    counts = gather(nonzero_cums, ends) - gather(nonzero_cums, starts)
+    return torch.where(counts == 0.0, 0.0,
+                       sums / torch.clamp(counts, min=1.0))
+
+
 class ConvAttention(nn.Module):
-    """Weights of the reference's soft mel<->text aligner (attention.py:
-    85-223): key and query conv projections, and the Conv2d `attn_proj`
-    it instantiates but never calls. Training-time only."""
+    """The reference's soft mel<->text aligner (attention.py:85-223): conv
+    projections of both streams, negative-L2 Gaussian log-likelihood
+    scores, the beta-binomial prior in log space, masked softmax over the
+    text axis. Holds the Conv2d `attn_proj` the reference instantiates but
+    never calls, so its checkpoints load strictly. Layout feature-last."""
 
     def __init__(self, n_mel_channels: int = 80, n_text_channels: int = 384,
                  n_att_channels: int = 80):
@@ -161,9 +187,31 @@ class ConvAttention(nn.Module):
             _ConvNorm(n_mel_channels, n_att_channels, 1))
         self.attn_proj = nn.Conv2d(n_att_channels, 1, kernel_size=1)
 
+    def forward(self, mels: torch.Tensor, text_emb: torch.Tensor,
+                text_mask: torch.Tensor, attn_prior=None):
+        """mels [B, T_mel, n_mel], text_emb [B, T_txt, C], text_mask
+        [B, T_txt] bool. Returns (attn [B, T_mel, T_txt] softmaxed over the
+        text axis, attn_logprob of the same shape)."""
+        k = conv1d_same(text_emb, self.key_proj[0].conv)
+        k = conv1d_same(torch.relu(k), self.key_proj[2].conv)
+        q = conv1d_same(mels, self.query_proj[0].conv)
+        q = conv1d_same(torch.relu(q), self.query_proj[2].conv)
+        q = conv1d_same(torch.relu(q), self.query_proj[4].conv)
+        # -0.0005 * ||q_f - k_t||^2, expanded so the cross term is a matmul
+        q2 = torch.sum(q ** 2, dim=-1)[:, :, None]
+        k2 = torch.sum(k ** 2, dim=-1)[:, None, :]
+        qk = torch.matmul(q, k.transpose(1, 2))
+        scores = -0.0005 * (q2 + k2 - 2.0 * qk)
+        if attn_prior is not None:
+            scores = (torch.log_softmax(scores, dim=2)
+                      + torch.log(attn_prior + 1e-8))
+        attn_logprob = scores
+        scores = scores.masked_fill(~text_mask[:, None, :], float("-inf"))
+        return torch.softmax(scores, dim=2), attn_logprob
+
 
 class FastPitch(nn.Module):
-    """The FastPitch network (inference). See module docstring."""
+    """The FastPitch network. See module docstring."""
 
     def __init__(self, config: FastPitchConfig = FastPitchConfig()):
         super().__init__()
@@ -171,21 +219,26 @@ class FastPitch(nn.Module):
         self.encoder = FFTransformer(
             c.enc_n_layers, c.enc_n_heads, c.d_model, c.enc_d_head,
             c.enc_filter_size, c.enc_kernel_size, embed_input=True,
-            n_embed=c.n_symbols, padding_idx=c.padding_idx)
+            n_embed=c.n_symbols, padding_idx=c.padding_idx,
+            dropout=c.enc_dropout, dropatt=c.enc_dropatt,
+            dropemb=c.enc_dropemb)
         self.decoder = FFTransformer(
             c.dec_n_layers, c.dec_n_heads, c.d_model, c.dec_d_head,
-            c.dec_filter_size, c.dec_kernel_size)
+            c.dec_filter_size, c.dec_kernel_size, dropout=c.dec_dropout,
+            dropatt=c.dec_dropatt, dropemb=c.dec_dropemb)
         self.duration_predictor = TemporalPredictor(
-            c.d_model, c.dur_filter_size, c.dur_kernel_size, c.dur_n_layers)
+            c.d_model, c.dur_filter_size, c.dur_kernel_size, c.dur_n_layers,
+            dropout=c.dur_dropout)
         self.pitch_predictor = TemporalPredictor(
             c.d_model, c.pitch_filter_size, c.pitch_kernel_size,
-            c.pitch_n_layers, n_predictions=c.pitch_formants)
+            c.pitch_n_layers, n_predictions=c.pitch_formants,
+            dropout=c.pitch_dropout)
         self.pitch_emb = nn.Conv1d(c.pitch_formants, c.d_model,
                                    c.pitch_emb_kernel_size)
         if c.energy_conditioning:
             self.energy_predictor = TemporalPredictor(
                 c.d_model, c.energy_filter_size, c.energy_kernel_size,
-                c.energy_n_layers)
+                c.energy_n_layers, dropout=c.energy_dropout)
             self.energy_emb = nn.Conv1d(1, c.d_model,
                                         c.energy_emb_kernel_size)
         if c.n_speakers > 1:
@@ -267,3 +320,73 @@ class FastPitch(nn.Module):
                 "dur_pred": enc["dur_pred"],
                 "pitch_pred": enc["pitch_pred"],
                 "energy_pred": enc["energy_pred"]}
+
+    # ---- training ----------------------------------------------------------
+
+    def forward_train(self, tokens, token_lens, mel_tgt, mel_lens,
+                      pitch_dense, energy_dense, attn_prior, attn_hard_dur,
+                      *, gen: torch.Generator | None = None) -> dict:
+        """Teacher-forced training forward (reference `forward`,
+        model.py:273-349), in the JAX package's split: MAS is not in here.
+        The caller computes the soft attention with `align_attention`, runs
+        MAS on it and passes the hard durations `attn_hard_dur` [B, T_txt]
+        back in (no gradient flows through them).
+
+        mel_tgt [B, T_mel, n_mel] (feature-last); pitch_dense [B, 1, T_mel];
+        energy_dense [B, T_mel]; attn_prior [B, T_mel, T_txt]. `gen` draws
+        the dropout masks (None: no dropout). Returns a dict of everything
+        the losses need. The pitch and energy embeddings take the targets
+        (teacher forcing), as the reference's training forward does."""
+        c = self.config
+        enc_out, enc_mask = self.encoder(tokens, gen=gen)
+
+        log_dur_pred = self.duration_predictor(enc_out, enc_mask,
+                                               gen).squeeze(-1)
+        dur_pred = torch.clamp(torch.exp(log_dur_pred) - 1.0, 0.0, 75.0)
+        pitch_pred = self.pitch_predictor(enc_out, enc_mask,
+                                          gen).transpose(1, 2)  # [B, 1, T]
+
+        # soft alignment for the aligner losses
+        text_emb = self.encoder.embed_tokens(tokens)
+        attn_soft, attn_logprob = self.attention(mel_tgt, text_emb, enc_mask,
+                                                 attn_prior)
+
+        dur_tgt = attn_hard_dur.detach()
+        pitch_tgt = average_by_durations(pitch_dense, dur_tgt)
+        enc_out = enc_out + conv1d_same(pitch_tgt.transpose(1, 2),
+                                        self.pitch_emb)
+
+        energy_pred = energy_tgt = None
+        if c.energy_conditioning:
+            energy_pred = self.energy_predictor(enc_out, enc_mask,
+                                                gen).squeeze(-1)
+            energy_tgt = torch.log1p(average_by_durations(
+                energy_dense[:, None, :], dur_tgt))
+            enc_out = enc_out + conv1d_same(energy_tgt.transpose(1, 2),
+                                            self.energy_emb)
+            energy_tgt = energy_tgt.squeeze(1)
+
+        regulated, dec_lens = regulate_len(dur_tgt, enc_out,
+                                           mel_tgt.shape[1])
+        dec_out, dec_mask = self.decoder(regulated, seq_lens=dec_lens,
+                                         gen=gen)
+        return {
+            "mel_out": linear(dec_out, self.proj),
+            "dec_mask": dec_mask,
+            "dur_pred": dur_pred,
+            "log_dur_pred": log_dur_pred,
+            "dur_tgt": dur_tgt,
+            "pitch_pred": pitch_pred,
+            "pitch_tgt": pitch_tgt,
+            "energy_pred": energy_pred,
+            "energy_tgt": energy_tgt,
+            "attn_soft": attn_soft,
+            "attn_logprob": attn_logprob,
+        }
+
+    def align_attention(self, tokens, mel_tgt, attn_prior):
+        """Soft attention only (the train step's MAS input): (attn_soft,
+        attn_logprob), each [B, T_mel, T_txt]."""
+        text_emb = self.encoder.embed_tokens(tokens)
+        enc_mask = tokens != self.config.padding_idx
+        return self.attention(mel_tgt, text_emb, enc_mask, attn_prior)

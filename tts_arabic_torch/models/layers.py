@@ -8,6 +8,12 @@ names follow the reference PyTorch FastPitch state dict
 `strict=True`. Every layer casts its weights to the input's dtype, so one
 f32 module runs in bf16 when given bf16 inputs (the JAX pipeline casts its
 parameters the same way).
+
+Dropout runs only in training, where the caller passes a `torch.Generator`
+on the input's device (`gen`); with `gen=None` (inference) every dropout
+site is the identity. The sites are the JAX package's: attention
+probabilities and output, the FFN output, the embedding, each predictor
+layer.
 """
 from __future__ import annotations
 
@@ -36,6 +42,18 @@ def sinusoidal_positions(n_pos: int, dim: int) -> np.ndarray:
                           axis=1).astype(np.float32)
 
 
+def dropout(x: torch.Tensor, rate: float,
+            gen: torch.Generator | None) -> torch.Tensor:
+    """flax's `nn.Dropout`: keep each value with probability 1 - rate and
+    scale it by 1 / (1 - rate). The identity without a generator
+    (inference) or at rate 0. The mask is drawn from `gen`, on x's
+    device."""
+    if gen is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
 def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     b = None if layer.bias is None else layer.bias.to(x.dtype)
     return F.linear(x, layer.weight.to(x.dtype), b)
@@ -62,22 +80,26 @@ class SelfAttention(nn.Module):
     (reference `MultiHeadAttn`, transformer.py:93-160): plain matmul and
     softmax, as the JAX package computes it."""
 
-    def __init__(self, n_head: int, d_model: int, d_head: int):
+    def __init__(self, n_head: int, d_model: int, d_head: int,
+                 dropout: float = 0.0, dropatt: float = 0.0):
         super().__init__()
         self.n_head, self.d_head = n_head, d_head
+        self.dropout, self.dropatt = dropout, dropatt
         self.qkv_net = nn.Linear(d_model, 3 * n_head * d_head)
         self.o_net = nn.Linear(n_head * d_head, d_model, bias=False)
         self.layer_norm = nn.LayerNorm(d_model, eps=1e-5)
 
-    def forward(self, x: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, key_mask: torch.Tensor,
+                gen: torch.Generator | None = None) -> torch.Tensor:
         B, T, _ = x.shape
         h, d = self.n_head, self.d_head
         q, k, v = linear(x, self.qkv_net).reshape(B, T, 3, h, d).unbind(2)
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(d)
         scores = scores.masked_fill(~key_mask[:, None, None, :], _NEG_INF)
-        probs = torch.softmax(scores, dim=-1)
+        probs = dropout(torch.softmax(scores, dim=-1), self.dropatt, gen)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, T, h * d)
-        return layer_norm(x + linear(out, self.o_net), self.layer_norm)
+        out = dropout(linear(out, self.o_net), self.dropout, gen)
+        return layer_norm(x + out, self.layer_norm)
 
 
 class ConvFFN(nn.Module):
@@ -87,22 +109,24 @@ class ConvFFN(nn.Module):
     stack's output at real positions independent of bucket padding (the JAX
     package's pad-invariance)."""
 
-    def __init__(self, d_model: int, d_inner: int, kernel_size: int = 3):
+    def __init__(self, d_model: int, d_inner: int, kernel_size: int = 3,
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         # reference layout: CoreNet = Sequential(Conv1d, ReLU, Conv1d, ...)
         self.CoreNet = nn.Sequential(
             nn.Conv1d(d_model, d_inner, kernel_size), nn.ReLU(),
             nn.Conv1d(d_inner, d_model, kernel_size))
         self.layer_norm = nn.LayerNorm(d_model, eps=1e-5)
 
-    def forward(self, x: torch.Tensor,
-                mask: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
+                gen: torch.Generator | None = None) -> torch.Tensor:
         m = None if mask is None else mask[..., None].to(x.dtype)
         y = x if m is None else x * m
         y = torch.relu(conv1d_same(y, self.CoreNet[0]))
         if m is not None:
             y = y * m
-        y = conv1d_same(y, self.CoreNet[2])
+        y = dropout(conv1d_same(y, self.CoreNet[2]), self.dropout, gen)
         return layer_norm(x + y, self.layer_norm)
 
 
@@ -112,15 +136,18 @@ class FFTBlock(nn.Module):
     """
 
     def __init__(self, n_head: int, d_model: int, d_head: int, d_inner: int,
-                 kernel_size: int):
+                 kernel_size: int, dropout: float = 0.0,
+                 dropatt: float = 0.0):
         super().__init__()
-        self.dec_attn = SelfAttention(n_head, d_model, d_head)
-        self.pos_ff = ConvFFN(d_model, d_inner, kernel_size)
+        self.dec_attn = SelfAttention(n_head, d_model, d_head, dropout,
+                                      dropatt)
+        self.pos_ff = ConvFFN(d_model, d_inner, kernel_size, dropout)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                gen: torch.Generator | None = None) -> torch.Tensor:
         m = mask[..., None].to(x.dtype)
-        x = self.dec_attn(x, mask) * m
-        return self.pos_ff(x, mask) * m
+        x = self.dec_attn(x, mask, gen) * m
+        return self.pos_ff(x, mask, gen) * m
 
 
 class PositionalEmbedding(nn.Module):
@@ -140,23 +167,27 @@ class FFTransformer(nn.Module):
 
     def __init__(self, n_layer: int, n_head: int, d_model: int, d_head: int,
                  d_inner: int, kernel_size: int, embed_input: bool = False,
-                 n_embed: int | None = None, padding_idx: int = 0):
+                 n_embed: int | None = None, padding_idx: int = 0,
+                 dropout: float = 0.0, dropatt: float = 0.0,
+                 dropemb: float = 0.0):
         super().__init__()
         self.d_model = d_model
         self.padding_idx = padding_idx
+        self.dropemb = dropemb
         if embed_input:
             self.word_emb = nn.Embedding(n_embed, d_model)
         self.pos_emb = PositionalEmbedding(d_model)
         self.layers = nn.ModuleList(
-            FFTBlock(n_head, d_model, d_head, d_inner, kernel_size)
+            FFTBlock(n_head, d_model, d_head, d_inner, kernel_size, dropout,
+                     dropatt)
             for _ in range(n_layer))
 
     def forward(self, inputs: torch.Tensor, seq_lens=None,
-                conditioning=0.0):
+                conditioning=0.0, gen: torch.Generator | None = None):
         """inputs: int tokens [B, T] (with a word embedding) or features
         [B, T, C]. Returns (out [B, T, C], mask [B, T] bool)."""
         if hasattr(self, "word_emb"):
-            x = F.embedding(inputs, self.word_emb.weight)
+            x = self.embed_tokens(inputs)
             mask = inputs != self.padding_idx
         else:
             x = inputs
@@ -164,9 +195,13 @@ class FFTransformer(nn.Module):
         pos = torch.from_numpy(sinusoidal_positions(x.shape[1], self.d_model))
         pos = pos.to(x.device, x.dtype)
         x = x + pos[None] * mask[..., None].to(x.dtype) + conditioning
+        x = dropout(x, self.dropemb, gen)
         for block in self.layers:
-            x = block(x, mask)
+            x = block(x, mask, gen)
         return x, mask
+
+    def embed_tokens(self, inputs: torch.Tensor) -> torch.Tensor:
+        return F.embedding(inputs, self.word_emb.weight)
 
 
 class ConvReLUNorm(nn.Module):
@@ -174,16 +209,18 @@ class ConvReLUNorm(nn.Module):
     `mask` re-masks the conv input for pad-invariance."""
 
     def __init__(self, in_channels: int, channels: int,
-                 kernel_size: int = 3):
+                 kernel_size: int = 3, dropout: float = 0.0):
         super().__init__()
         self.conv = nn.Conv1d(in_channels, channels, kernel_size)
         self.norm = nn.LayerNorm(channels, eps=1e-5)
+        self.dropout = dropout
 
-    def forward(self, x: torch.Tensor,
-                mask: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
+                gen: torch.Generator | None = None) -> torch.Tensor:
         if mask is not None:
             x = x * mask[..., None].to(x.dtype)
-        return layer_norm(torch.relu(conv1d_same(x, self.conv)), self.norm)
+        y = layer_norm(torch.relu(conv1d_same(x, self.conv)), self.norm)
+        return dropout(y, self.dropout, gen)
 
 
 class TemporalPredictor(nn.Module):
@@ -192,19 +229,20 @@ class TemporalPredictor(nn.Module):
 
     def __init__(self, in_channels: int, filter_size: int,
                  kernel_size: int = 3, n_layers: int = 2,
-                 n_predictions: int = 1):
+                 n_predictions: int = 1, dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList(
             ConvReLUNorm(in_channels if i == 0 else filter_size, filter_size,
-                         kernel_size)
+                         kernel_size, dropout)
             for i in range(n_layers))
         self.fc = nn.Linear(filter_size, n_predictions)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                gen: torch.Generator | None = None) -> torch.Tensor:
         m = mask[..., None].to(x.dtype)
         y = x * m
         for layer in self.layers:
-            y = layer(y, mask)
+            y = layer(y, mask, gen)
         return linear(y, self.fc) * m
 
 

@@ -1,7 +1,8 @@
 """Builds the port's CUDA kernels with nvcc and loads them through ctypes.
 
-Every `csrc/*.cu` source is compiled for `sm_90a` into one shared library
-with a plain C interface, at first use, into `build/` beside the package
+Every `csrc/*.cu` source is compiled for `sm_90a` at first use, one `nvcc`
+process per source, all started together, and the objects are linked into
+one shared library with a plain C interface in `build/` beside the package
 (git-ignored). The library's name carries a hash of the sources and the
 flags, so an edited source is rebuilt and a stale library is never loaded.
 Nothing here runs at import time: the CPU-only test suite imports every
@@ -21,7 +22,7 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -60,15 +61,27 @@ def library() -> ctypes.CDLL:
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+            nvcc = _nvcc()
+            objs = [tmp.with_name(f"{tmp.name}.{s.stem}.o") for s in srcs]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            procs = [subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for s, o in zip(srcs, objs)]
+            logs = [p.communicate()[0] for p in procs]
+            link = None
+            if all(p.returncode == 0 for p in procs):
+                link = subprocess.run(
+                    [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                    capture_output=True, text=True)
+                logs.append(link.stdout + link.stderr)
             build_seconds = time.perf_counter() - t0
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
+            build_log = "".join(logs)
+            for o in objs:
+                o.unlink(missing_ok=True)
+            if link is None or link.returncode != 0:
                 tmp.unlink(missing_ok=True)
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{build_log}")
+                raise RuntimeError(f"nvcc failed:\n{build_log}")
             os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -76,5 +89,7 @@ def library() -> ctypes.CDLL:
         lib.resblock1_pass.restype = i
         lib.resblock1_fused.argtypes = [p] * 6 + [i] * 10 + [p]
         lib.resblock1_fused.restype = i
+        lib.mas_forward.argtypes = [p] * 5 + [i] * 3 + [p]
+        lib.mas_forward.restype = i
         _lib = lib
         return lib
