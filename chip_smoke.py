@@ -8,11 +8,13 @@ full width, and checks what comes out.
 
 Phases, one line each (and a table for the kernel checks):
 1. device: nvidia-smi's name and power limit, torch's device name
-2. kernel build (nvcc, sm_90a) and its seconds
+2. kernel build (nvcc, sm_90a), its seconds, and ptxas's registers, stack
+   and spills for each kernel
    (then one untimed warm tts() of phase 4, which records the mel shapes
    of its generator calls)
 3. kernel checks: resblock1 wide (C 256/128/64) and narrow (C 64/32),
-   k 3/7/11, dilations 1/3/5, f32 and bf16, at the main path's widths and
+   k 3/7/11, dilations 1/3/5, f32 (the CUDA-core kernels) and bf16 (the
+   tensor-core kernels), at the main path's widths and
    stage lengths (each generator call's frames x the stage's samples per
    frame, batch 8), and once 3 rows shorter, which no tile divides, against
    `resblock1_plain`: f32 with TF32 off; bf16 against the plain version run
@@ -20,11 +22,18 @@ Phases, one line each (and a table for the kernel checks):
    kernel's ms, the plain version's ms (same dtype) and the bound
 4. main path: full-width FastPitch (d_model 384, 6+6 layers) + HiFi-GAN V1
    in bf16 on 16 prompts of data/infer_text.txt, batch 8, denoise 0.005,
-   random weights from seed 0 with the duration head biased by +2.0; the
-   launch counters are set to 0 just before the timed tts() and read just
-   after
-5. whole-generator check: f32 tts_single on 2 prompts through the kernels,
-   then with the generator's ResBlocks on `resblock1_plain`; SNR > 40 dB
+   random weights from seed 0 with the duration head biased by +2.0; three
+   tts() calls timed on the host clock, the first two re-warming the
+   allocator (phase 3 empties its cache), the launch counters set to 0
+   just before the third and read just after. Then one more tts() under
+   torch.profiler (CUDA activity): the ResBlock kernels' device ms, the 8
+   other device ops with the most device time, and the device's idle
+   share of that call's wall
+5. whole-generator checks: tts_single on 2 prompts through the kernels,
+   then with the generator's ResBlocks on `resblock1_plain`: in f32 (SNR
+   > 40 dB), and in bf16 against the plain ResBlocks run in f32 on each
+   stage's bf16 input (SNR > 35.99 dB, the CUDA-core kernels' 38.99 dB
+   less 3)
    (then a synthetic corpus for the training slice is written to a temp
    dir under build/ from seed 0: the first 60 lines of
    data/train_phon.txt with at most 140 symbols and 10 of
@@ -81,6 +90,7 @@ DILATIONS = (1, 3, 5)
 KERNEL_SIZES = (3, 7, 11)
 N_PROMPTS = 16
 BATCH = 8
+N_TIMED = 3             # timed tts() calls in phase 4, the last counted
 # the card's published peaks (H100 SXM data sheet, dense, 700 W)
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
@@ -89,6 +99,11 @@ PEAK_BYTES = 3.35e12
 # and residual to bf16 (as the TPU kernel rounds to x.dtype), the plain
 # reference runs in f32
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# phase 5, whole-generator SNR (dB) of the kernels against the plain
+# ResBlocks: f32 differs by summation order; bf16 (against the plain
+# version in f32) is the CUDA-core kernels' reading, 38.99 dB on an H100,
+# less 3 dB
+SNR_GATE = {torch.float32: 40.0, torch.bfloat16: 35.99}
 WIDE_CHANNELS = (256, 128, 64)
 NARROW_CHANNELS = (64, 32)
 STAGE_T = {256: 8, 128: 64, 64: 128, 32: 256}   # samples per mel frame
@@ -142,17 +157,33 @@ def phase_device() -> tuple[str, str]:
     return smi, name
 
 
+def ptxas_lines(build_log: str) -> list[str]:
+    """ptxas's register and spill lines, one per kernel, each after the
+    kernel's name and template arguments."""
+    out, name = {}, "?"
+    for ln in build_log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?\d+((?:resblock1|mas)"
+                      r"\w*?kernel)(I\w*?E)?E", ln)
+        if m:
+            targs = m.group(2) or ""
+            args = re.findall(r"Li(\d+)E", targs) or (
+                ["float"] if targs == "IfE" else [])
+            name = m.group(1) + (f"<{','.join(args)}>" if args else "")
+        elif re.search(r"registers|spill", ln):
+            out.setdefault(name, []).append(
+                ln.split(":", 1)[-1].strip() if "Used" in ln else ln.strip())
+    return [f"{n}: {'; '.join(v)}" for n, v in out.items()]
+
+
 def phase_build() -> None:
     from tts_arabic_torch.ops import build
     t0 = time.perf_counter()
     build.library()
     took = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in build.build_log.splitlines()
-             if re.search(r"registers|spill", ln)]
     srcs = ", ".join(p.name for p in sorted(build.CSRC.glob("*.cu")))
     log(f"[2 build] {srcs} -> sm_90a in {took:.2f} s "
         f"(nvcc {build.build_seconds:.2f} s, one process per source)")
-    for ln in ptxas:
+    for ln in ptxas_lines(build.build_log):
         log(f"    ptxas: {ln}")
 
 
@@ -305,15 +336,24 @@ def warm_run(pipe, prompts: list[str]) -> list[tuple]:
 
 def phase_main_path(pipe, prompts: list[str], shapes: list[tuple],
                     kernel_ms: float, smi: str) -> dict:
+    """N_TIMED tts() calls of the prompts, each timed on the host clock:
+    the first ones re-warm the allocator (phase 3 emptied its cache), the
+    last is the main path's run, with the launch counters set to 0 just
+    before it and read just after."""
     from tts_arabic_torch.ops import mas as mas_ops
     from tts_arabic_torch.ops import resblock as rb
     torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(N_TIMED - 1):
+        t0 = time.perf_counter()
+        pipe.tts(prompts, batch_size=BATCH, denoise=0.005)
+        walls.append(time.perf_counter() - t0)
     with generator_calls() as calls:
         rb.reset_launches()
         mas_ops.reset_launches()
         t0 = time.perf_counter()
         waves = pipe.tts(prompts, batch_size=BATCH, denoise=0.005)
-        wall = time.perf_counter() - t0
+        walls.append(time.perf_counter() - t0)
         launches = dict(rb.LAUNCHES)
         mas_launches = mas_ops.LAUNCHES["mas"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -344,37 +384,101 @@ def phase_main_path(pipe, prompts: list[str], shapes: list[tuple],
     if launches != expected:
         raise AssertionError(f"launches {launches}, expected {expected}")
     audio_s = sum(w.size for w in waves) / pipe.sample_rate
+    wall = walls[-1]
     log(f"[4 main path] tts() of {len(prompts)} prompts, batch {BATCH}, "
         f"bf16: {audio_s:.2f} s of audio in {wall:.3f} s wall = "
-        f"{audio_s / wall:.1f}x real time | generator calls (mel shapes) "
+        f"{audio_s / wall:.1f}x real time (the {N_TIMED} calls: "
+        f"{', '.join(f'{w:.3f}' for w in walls)} s, the first after phase 3 "
+        f"emptied the allocator's cache) | generator calls (mel shapes) "
         f"{calls} | launches {launches}, mas 0 | ResBlock kernels at these "
-        f"shapes "
-        f"(phase 3): {kernel_ms:.1f} ms = {kernel_ms / 10 / wall:.0f}% of "
-        f"the wall | peak memory {peak_gb:.2f} GB | {smi}")
+        f"shapes (phase 3): {kernel_ms:.1f} ms = {kernel_ms / 10 / wall:.0f}"
+        f"% of the wall | peak memory {peak_gb:.2f} GB | {smi}")
     return launches
 
 
-def phase_generator_check(smi: str) -> None:
+def _plain_f32(x, w1, b1, w2, b2, k, dilations):
+    """`resblock1_plain` in f32 on the stage's own input and the weights
+    the kernel reads (rounded to x's dtype); the result in x's dtype."""
+    from tts_arabic_torch.ops import resblock as rb
+    w1, w2 = (w.to(x.dtype).float() for w in (w1, w2))
+    return rb.resblock1_plain(x.float(), w1, b1.float(), w2, b2.float(), k,
+                              dilations).to(x.dtype)
+
+
+def _short(name: str) -> str:
+    name = name.replace("(anonymous namespace)::", "")
+    return re.sub(r"^void ", "", name).split("(")[0][:60]
+
+
+def profile_tts(pipe, prompts: list[str], smi: str) -> None:
+    """One more tts() of phase 4's prompts under torch.profiler (CUDA
+    activity only), apart from the timed one: the ResBlock kernels' device
+    ms, the 8 other device ops with the most device time, and the device's
+    idle share of the call's wall (host clock, so the profiler's own cost
+    counts as idle)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipe.tts(prompts, batch_size=BATCH, denoise=0.005)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [(e.name, e.time_range.start, e.time_range.end)
+           for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        log(f"[4 profile] tts() under torch.profiler: no device events "
+            f"recorded, breakdown not measured | {smi}")
+        return
+    by_name = collections.Counter()
+    for name, s, e in dev:
+        by_name[_short(name)] += (e - s) / 1e3
+    busy, (lo, hi) = 0.0, sorted((s, e) for _, s, e in dev)[0]
+    for s, e in sorted((s, e) for _, s, e in dev):
+        if s > hi:
+            busy, lo = busy + hi - lo, s
+        hi = max(hi, e)
+    busy = (busy + hi - lo) / 1e3
+    rb_ms = sum(v for n, v in by_name.items() if "resblock1" in n)
+    top = [(n, v) for n, v in by_name.most_common() if "resblock1" not in n]
+    log(f"[4 profile] tts() under torch.profiler: wall {wall * 1e3:.1f} ms, "
+        f"device busy {busy:.1f} ms (idle {100 * (1 - busy / 1e3 / wall):.1f}"
+        f"% of the wall), {len(dev)} device ops summing "
+        f"{sum(by_name.values()):.1f} ms | ResBlock kernels {rb_ms:.2f} ms | "
+        f"top others: " + "; ".join(f"{n} {v:.2f} ms" for n, v in top[:8])
+        + f" | {smi}")
+
+
+def phase_generator_check(smi: str, dtype) -> list[float]:
+    """tts_single on 2 prompts through the kernels, then with every
+    generator ResBlock on the plain version (f32: as is, TF32 off; bf16:
+    `_plain_f32`); the SNR of the waves, gated at SNR_GATE[dtype]."""
     from tts_arabic_torch.ops import resblock as rb
     from tts_arabic_torch.vocoder import hifigan
+    set_tf32(False)
+    dname = str(dtype).removeprefix("torch.")
     prompts = load_prompts(2)
-    pipe = make_pipe(None)
+    pipe = make_pipe(None if dtype == torch.float32 else dtype)
     rb.reset_launches()
     kern = [pipe.tts_single(p, denoise=0.005) for p in prompts]
     if sum(rb.LAUNCHES.values()) == 0:
-        raise AssertionError("f32 tts_single launched no kernel")
-    with mock.patch.object(hifigan, "resblock1", rb.resblock1_plain):
+        raise AssertionError(f"{dname} tts_single launched no kernel")
+    plain_rb = rb.resblock1_plain if dtype == torch.float32 else _plain_f32
+    with mock.patch.object(hifigan, "resblock1", plain_rb):
         plain = [pipe.tts_single(p, denoise=0.005) for p in prompts]
     snrs = []
     for a, b in zip(kern, plain):
         assert a.shape == b.shape
         snrs.append(10 * np.log10(np.mean(b ** 2)
                                   / (np.mean((a - b) ** 2) + 1e-30)))
-    log(f"[5 generator check] f32 tts_single x2, kernels vs plain "
-        f"ResBlocks on the card: SNR {', '.join(f'{s:.1f}' for s in snrs)} "
-        f"dB (> 40) | {smi}")
-    if not min(snrs) > 40.0:
-        raise AssertionError(f"SNR {min(snrs):.1f} dB <= 40")
+    log(f"[5 generator check] {dname} tts_single x2, kernels vs plain "
+        f"ResBlocks{' in f32' if dtype != torch.float32 else ''} on the "
+        f"card: SNR {', '.join(f'{s:.2f}' for s in snrs)} dB "
+        f"(> {SNR_GATE[dtype]}) | {smi}")
+    if not min(snrs) > SNR_GATE[dtype]:
+        raise AssertionError(f"{dname} SNR {min(snrs):.2f} dB <= "
+                             f"{SNR_GATE[dtype]}")
+    return snrs
 
 
 # ---- the training slice ------------------------------------------------------
@@ -725,8 +829,10 @@ def main() -> int:
     summary = phase_kernel_checks([f for _, f, _ in shapes])
     launches = phase_main_path(pipe, prompts, shapes,
                                sum(s["ms"] for s in summary.values()), smi)
+    profile_tts(pipe, prompts, smi)
     del pipe
-    phase_generator_check(smi)
+    phase_generator_check(smi, torch.float32)
+    phase_generator_check(smi, torch.bfloat16)
     build_dir = ROOT / "build"      # git-ignored, inside the checkout
     build_dir.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="smoke_corpus_",

@@ -41,6 +41,14 @@ def _case(C, k, T, dtype, seed=0):
             w2.cuda().to(dtype), b2.cuda())
 
 
+def _rel_err(got, x, w1, b1, w2, b2, k):
+    """max |kernel - plain| / max |plain|, the plain version in f32 on the
+    same (possibly bf16) inputs."""
+    ref = rb.resblock1_plain(x.float(), w1.float(), b1, w2.float(), b2, k,
+                             DIL)
+    return float((got.float() - ref).abs().max() / ref.abs().max())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
@@ -51,32 +59,62 @@ def _case(C, k, T, dtype, seed=0):
     ("resblock1_narrow", 16), ("resblock1_narrow", 8)])
 def test_resblock1_kernel_matches_plain(cuda, variant, C, k, dtype,
                                         monkeypatch):
+    """Each kernel against the plain version at T = 1000, no multiple of
+    any tile. The bf16 kernels (tensor cores, K in steps of 16 channels)
+    take no C = 8: the wrapper refuses it."""
     monkeypatch.setattr(rb, "variant", lambda c: variant)
-    T = 1000                  # no multiple of any tile
+    T = 1000
     x, w1, b1, w2, b2 = _case(C, k, T, dtype)
     before = rb.LAUNCHES[variant]
+    if dtype == torch.bfloat16 and C == 8:
+        with pytest.raises(ValueError, match="no resblock1_narrow kernel"):
+            rb.resblock1(x, w1, b1, w2, b2, k, DIL)
+        assert rb.LAUNCHES[variant] == before
+        return
     got = rb.resblock1(x, w1, b1, w2, b2, k, DIL)
     torch.cuda.synchronize()
     assert rb.LAUNCHES[variant] == before + (3 if variant.endswith("wide")
                                              else 1)
     assert got.dtype == dtype and got.shape == x.shape
-    ref = rb.resblock1_plain(x.float(), w1.float(), b1, w2.float(), b2, k,
-                             DIL)
-    rel = float((got.float() - ref).abs().max() / ref.abs().max())
+    rel = _rel_err(got, x, w1, b1, w2, b2, k)
     assert rel <= TOL[dtype], rel
 
 
 @pytest.mark.cuda
 def test_short_sequences_and_edges(cuda):
     """T shorter than a tile and than the halo: the SAME zero padding at
-    both ends comes from the mask alone."""
-    for C, T in ((256, 5), (128, 1), (32, 7), (32, 130)):
-        x, w1, b1, w2, b2 = _case(C, 11, T, torch.float32, seed=T)
-        got = rb.resblock1(x, w1, b1, w2, b2, 11, DIL)
-        ref = rb.resblock1_plain(x, w1, b1, w2, b2, 11, DIL)
+    both ends comes from the mask alone, in both kernels' dtypes."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for C, T in ((256, 5), (128, 1), (64, 20), (32, 7), (32, 130)):
+            x, w1, b1, w2, b2 = _case(C, 11, T, dtype, seed=T)
+            got = rb.resblock1(x, w1, b1, w2, b2, 11, DIL)
+            torch.cuda.synchronize()
+            rel = _rel_err(got, x, w1, b1, w2, b2, 11)
+            assert rel <= TOL[dtype], (C, T, dtype, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,C", [
+    ("resblock1_wide", 256), ("resblock1_wide", 128), ("resblock1_wide", 64),
+    ("resblock1_narrow", 64), ("resblock1_narrow", 32),
+    ("resblock1_narrow", 16)])
+def test_bf16_ragged_tiles_and_one_row(cuda, variant, C, monkeypatch):
+    """bf16, B = 1 and T = 1237: more than one tile of every kernel (wide
+    tiles are 128/256/512 rows less the halo, narrow 512 or 256), no
+    multiple of 16, so the last tile and its last m-tile are ragged."""
+    monkeypatch.setattr(rb, "variant", lambda c: variant)
+    for k in (3, 11):
+        g = torch.Generator().manual_seed(k)
+        x = torch.randn((1, 1237, C), generator=g)
+        w1, w2 = (torch.randn((3, C, C, k), generator=g) / (k * C) ** 0.5
+                  for _ in range(2))
+        b1, b2 = (0.1 * torch.randn((3, C), generator=g) for _ in range(2))
+        x, w1, w2 = (t.cuda().to(torch.bfloat16) for t in (x, w1, w2))
+        b1, b2 = b1.cuda(), b2.cuda()
+        got = rb.resblock1(x, w1, b1, w2, b2, k, DIL)
         torch.cuda.synchronize()
-        rel = float((got - ref).abs().max() / ref.abs().max())
-        assert rel <= TOL[torch.float32], (C, T, rel)
+        rel = _rel_err(got, x, w1, b1, w2, b2, k)
+        assert rel <= TOL[torch.bfloat16], (k, rel)
 
 
 @pytest.mark.cuda
@@ -84,6 +122,13 @@ def test_unsupported_width_raises(cuda):
     x, w1, b1, w2, b2 = _case(48, 3, 50, torch.float32)
     with pytest.raises(ValueError, match="no resblock1_wide kernel"):
         rb.resblock1(x, w1, b1, w2, b2, 3, DIL)
+    # the bf16 kernels read x 16 bytes at once
+    x, w1, b1, w2, b2 = _case(64, 3, 50, torch.bfloat16)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    shifted = shifted[1:].view(x.shape)
+    shifted.copy_(x)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        rb.resblock1(shifted, w1, b1, w2, b2, 3, DIL)
 
 
 def _mas_case(B, T_mel, T_txt, seed):

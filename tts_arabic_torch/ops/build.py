@@ -85,10 +85,12 @@ def library() -> ctypes.CDLL:
             os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.resblock1_pass.argtypes = [p] * 6 + [i] * 7 + [p]
-        lib.resblock1_pass.restype = i
-        lib.resblock1_fused.argtypes = [p] * 6 + [i] * 10 + [p]
-        lib.resblock1_fused.restype = i
+        for fn, n_int in (("resblock1_pass_f32", 6),
+                          ("resblock1_pass_bf16", 5),
+                          ("resblock1_fused_f32", 9),
+                          ("resblock1_fused_bf16", 8)):
+            getattr(lib, fn).argtypes = [p] * 6 + [i] * n_int + [p]
+            getattr(lib, fn).restype = i
         lib.mas_forward.argtypes = [p] * 5 + [i] * 3 + [p]
         lib.mas_forward.restype = i
         _lib = lib

@@ -4,9 +4,10 @@ Replaces `tts_arabic_tpu/ops/hifigan_pallas.py::resblock_pallas` (the wide
 variant here, C >= 64: one fused [leaky -> dilated conv -> leaky -> conv ->
 add] pass per launch, three launches per ResBlock) and `::
 resblock_pallas_packed` (the narrow variant, C <= 32: the whole ResBlock in
-one launch). Source: `csrc/resblock1.cu`, whose note gives the design, the
-shared-memory budget behind the split and what bounds the kernel (the f32
-CUDA-core FLOPs of the convs; it is far from the byte bound).
+one launch). Source: `csrc/resblock1.cu`, whose note gives the designs, the
+shared-memory budgets and what bounds each. bf16 runs implicit-GEMM convs on
+the tensor cores (`mma.sync`, weights streamed through shared memory by
+`cp.async`); f32 runs the first design on the f32 CUDA cores.
 
 `resblock1` takes the plain version only for tensors on the CPU. For a CUDA
 tensor it launches the kernel or raises; nothing falls back. `LAUNCHES`
@@ -25,11 +26,14 @@ LRELU_SLOPE = 0.1
 # kernel launches per variant (plain-version calls are not counted)
 LAUNCHES = {"resblock1_wide": 0, "resblock1_narrow": 0}
 
-# time rows per block: the most each variant's shared memory allows at
-# k=11 with a few blocks per SM (see csrc/resblock1.cu)
+# f32 kernels: time rows per block, the most each variant's shared memory
+# allows at k=11 with a few blocks per SM (see csrc/resblock1.cu)
 _WIDE_TILE = {256: 32, 128: 64, 64: 64}
 _NARROW_TILE = {64: 64, 32: 128, 16: 128, 8: 128}
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# widths the bf16 kernels are built for (their tiles are fixed in the source)
+_WIDTHS_BF16 = {"resblock1_wide": (256, 128, 64),
+                "resblock1_narrow": (64, 32, 16)}
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launches() -> None:
@@ -60,6 +64,13 @@ def resblock1_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 def variant(channels: int) -> str:
     """The kernel variant that serves a ResBlock of this width."""
     return "resblock1_narrow" if channels <= 32 else "resblock1_wide"
+
+
+def kernel_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Stacked Conv1d weights [n_d, C_out, C_in, k] -> the layout the
+    kernels read, [n_d, k, C_in, C_out] contiguous in `dtype`: each conv a
+    [k*C_in, C_out] matrix, K rows (tap, then input channel) by N."""
+    return w.permute(0, 3, 2, 1).contiguous().to(dtype)
 
 
 def _check(x, w1, b1, w2, b2, k, dilations):
@@ -102,26 +113,28 @@ def resblock1(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     B, T, C = x.shape
     k = kernel_size
     name = variant(C)
-    tiles = _NARROW_TILE if name == "resblock1_narrow" else _WIDE_TILE
-    if C not in tiles or (name == "resblock1_narrow" and len(dilations) > 3):
+    narrow = name == "resblock1_narrow"
+    bf16 = x.dtype == torch.bfloat16
+    widths = (_WIDTHS_BF16[name] if bf16
+              else _NARROW_TILE if narrow else _WIDE_TILE)
+    if C not in widths or (narrow and len(dilations) > 3):
         raise ValueError(f"no {name} kernel for C={C}, "
-                         f"{len(dilations)} dilations")
-    # the layout the kernel reads: [n_d, k, C_in, C_out] in x's dtype,
-    # biases f32
-    w1k = w1.permute(0, 3, 2, 1).contiguous().to(x.dtype)
-    w2k = w2.permute(0, 3, 2, 1).contiguous().to(x.dtype)
+                         f"{len(dilations)} dilations in {x.dtype}")
+    if bf16 and x.data_ptr() % 16:     # the kernel reads x 16 bytes at once
+        raise ValueError("bf16 x must start on a 16-byte boundary")
+    w1k, w2k = kernel_weights(w1, x.dtype), kernel_weights(w2, x.dtype)
     b1k = b1.contiguous().to(torch.float32)
     b2k = b2.contiguous().to(torch.float32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         out = torch.empty_like(x)
-        if name == "resblock1_narrow":
+        if narrow:
             d = list(dilations) + [1] * (3 - len(dilations))
-            err = lib.resblock1_fused(
-                x.data_ptr(), out.data_ptr(), w1k.data_ptr(),
-                b1k.data_ptr(), w2k.data_ptr(), b2k.data_ptr(), B, T, C, k,
-                len(dilations), d[0], d[1], d[2], _NARROW_TILE[C],
-                _DTYPES[x.dtype], stream)
+            args = (x.data_ptr(), out.data_ptr(), w1k.data_ptr(),
+                    b1k.data_ptr(), w2k.data_ptr(), b2k.data_ptr(), B, T, C,
+                    k, len(dilations), d[0], d[1], d[2])
+            err = (lib.resblock1_fused_bf16(*args, stream) if bf16 else
+                   lib.resblock1_fused_f32(*args, _NARROW_TILE[C], stream))
             _raise_on(err, name)
             LAUNCHES[name] += 1
             return out
@@ -131,10 +144,11 @@ def resblock1(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         src = x
         for i, d in enumerate(dilations):
             dst = bufs[(len(dilations) - 1 - i) % 2]
-            err = lib.resblock1_pass(
-                src.data_ptr(), dst.data_ptr(), w1k[i].data_ptr(),
-                b1k[i].data_ptr(), w2k[i].data_ptr(), b2k[i].data_ptr(), B,
-                T, C, k, d, _WIDE_TILE[C], _DTYPES[x.dtype], stream)
+            args = (src.data_ptr(), dst.data_ptr(), w1k[i].data_ptr(),
+                    b1k[i].data_ptr(), w2k[i].data_ptr(), b2k[i].data_ptr(),
+                    B, T, C, k, d)
+            err = (lib.resblock1_pass_bf16(*args, stream) if bf16 else
+                   lib.resblock1_pass_f32(*args, _WIDE_TILE[C], stream))
             _raise_on(err, name)
             LAUNCHES[name] += 1
             src = dst
