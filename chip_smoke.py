@@ -43,9 +43,14 @@ Phases, one line each (and a table for the kernel checks):
 6. MAS kernel checks: `ops.mas.mas_fused` against `align.mas.mas` on the
    card, at each collated shape of the training run's batches (their own
    lengths, random log-attention) and at [10, 1024, 256], a ragged
-   [4, 1000, 300] with rows where out_len < in_len, and [6, 1850, 368];
-   max |kernel - plain| must be 0 and the durations equal. At the training
-   batches: the kernel's ms, the plain version's ms and the byte bound
+   [4, 1000, 300] with rows where out_len < in_len, [6, 1850, 368], a
+   text past one warp's 1024 columns [2, 40, 2100], and two shapes whose
+   direction bits spill from shared memory to the global scratch,
+   [2, 6000, 1200] and bucket 4's [1, 30000, 4300]; max |kernel - plain|
+   must be 0 and the durations equal. Each row prints where its bits went
+   (shared memory or spilled) and the kernel's ms; at the training
+   batches also the first kernel's ms at the same batch (its reading in
+   `PERF.md`), the plain version's ms and the byte bound
 7. training: `apps.train_fastpitch.main` at full width (FastPitchConfig())
    on that corpus, one epoch (6 steps of batch 10, T_mel <= 1024), then
    validation; PyTorch's default precision (cuDNN TF32 on, matmul TF32
@@ -55,7 +60,10 @@ Phases, one line each (and a table for the kernel checks):
    checkpoint reloads into a fresh Trainer with identical parameters.
    Prints each step's loss and time, steps/s over steps 2-6 (host clock,
    synchronized), the MAS kernel's share of those steps (phase 6's times)
-   and the peak device memory
+   and the peak device memory. Then one more step at the first batch (a
+   shape met before) under torch.profiler: MAS's device ms and share of the
+   step's device time, the device's idle share of the step's wall, and the
+   8 device ops with the most device time
 8. whole-step check: one f32 train step (TF32 off, cuDNN deterministic)
    from one state, batch and dropout seed, with MAS on the kernel and then
    on the plain version; equal losses, gradients within 1e-5 of their norm
@@ -113,7 +121,14 @@ MAX_SYMBOLS = 140       # 980 frames at most: every utterance in bucket 1
 FRAMES_PER_SYMBOL = 7
 SAMPLE_RATE, HOP = 22050, 256
 # MAS checks beyond the training batches: [B, T_mel, T_txt]
-MAS_SHAPES = ((10, 1024, 256), (4, 1000, 300), (6, 1850, 368))
+MAS_SHAPES = {"full": (10, 1024, 256), "ragged": (4, 1000, 300),
+              "bucket 3": (6, 1850, 368), "long text": (2, 40, 2100),
+              "spilled": (2, 6000, 1200), "bucket 4": (1, 30000, 4300)}
+# the first MAS kernel (one warp per batch row) at the training run's
+# batches, ms a call (PERF.md section 6; H100 80GB HBM3, 700 W)
+FIRST_MAS_MS = {"train 0": 0.384, "train 1": 0.313, "train 2": 0.352,
+                "train 3": 0.263, "train 4": 0.178, "train 5": 0.347,
+                "val 0": 0.318}
 GRAD_TOL = 1e-5         # phase 8: |g_kernel - g_plain| / |g_plain|
 
 
@@ -410,26 +425,23 @@ def _short(name: str) -> str:
     return re.sub(r"^void ", "", name).split("(")[0][:60]
 
 
-def profile_tts(pipe, prompts: list[str], smi: str) -> None:
-    """One more tts() of phase 4's prompts under torch.profiler (CUDA
-    activity only), apart from the timed one: the ResBlock kernels' device
-    ms, the 8 other device ops with the most device time, and the device's
-    idle share of the call's wall (host clock, so the profiler's own cost
-    counts as idle)."""
+def profiled(fn):
+    """fn() under torch.profiler (CUDA activity only), ending in a
+    synchronize: (wall s on the host clock, device ms by op name, device
+    busy ms, number of device ops), or None where no device event was
+    recorded. The profiler's own host cost counts as idle."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe.tts(prompts, batch_size=BATCH, denoise=0.005)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev = [(e.name, e.time_range.start, e.time_range.end)
            for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
-        log(f"[4 profile] tts() under torch.profiler: no device events "
-            f"recorded, breakdown not measured | {smi}")
-        return
+        return None
     by_name = collections.Counter()
     for name, s, e in dev:
         by_name[_short(name)] += (e - s) / 1e3
@@ -438,14 +450,55 @@ def profile_tts(pipe, prompts: list[str], smi: str) -> None:
         if s > hi:
             busy, lo = busy + hi - lo, s
         hi = max(hi, e)
-    busy = (busy + hi - lo) / 1e3
+    return wall, by_name, (busy + hi - lo) / 1e3, len(dev)
+
+
+def profile_tts(pipe, prompts: list[str], smi: str) -> None:
+    """One more tts() of phase 4's prompts under torch.profiler, apart from
+    the timed one: the ResBlock kernels' device ms, the 8 other device ops
+    with the most device time, and the device's idle share of the call's
+    wall."""
+    got = profiled(lambda: pipe.tts(prompts, batch_size=BATCH,
+                                    denoise=0.005))
+    if got is None:
+        log(f"[4 profile] tts() under torch.profiler: no device events "
+            f"recorded, breakdown not measured | {smi}")
+        return
+    wall, by_name, busy, n_ops = got
     rb_ms = sum(v for n, v in by_name.items() if "resblock1" in n)
     top = [(n, v) for n, v in by_name.most_common() if "resblock1" not in n]
     log(f"[4 profile] tts() under torch.profiler: wall {wall * 1e3:.1f} ms, "
         f"device busy {busy:.1f} ms (idle {100 * (1 - busy / 1e3 / wall):.1f}"
-        f"% of the wall), {len(dev)} device ops summing "
+        f"% of the wall), {n_ops} device ops summing "
         f"{sum(by_name.values()):.1f} ms | ResBlock kernels {rb_ms:.2f} ms | "
         f"top others: " + "; ".join(f"{n} {v:.2f} ms" for n, v in top[:8])
+        + f" | {smi}")
+
+
+def profile_step(state, batch: dict, smi: str) -> None:
+    """One more train step of `state` at `batch`, a shape the run has met,
+    once unprofiled and then under torch.profiler: MAS's device ms and
+    share of the step's device time, the device's idle share of the step's
+    wall, and the 8 device ops with the most device time."""
+    from tts_arabic_torch.train import steps
+    step = steps.make_fastpitch_train_step(device="cuda")
+    step(state, batch, 1)
+    got = profiled(lambda: step(state, batch, 2))
+    shape = tuple(batch["attn_prior"].shape)
+    if got is None:
+        log(f"[7 profile] train step at {shape} under torch.profiler: no "
+            f"device events recorded, breakdown not measured | {smi}")
+        return
+    wall, by_name, busy, n_ops = got
+    dev_ms = sum(by_name.values())
+    mas_ms = sum(v for n, v in by_name.items() if "mas_kernel" in n)
+    log(f"[7 profile] one steady train step at {shape} under "
+        f"torch.profiler: wall {wall * 1e3:.1f} ms, device busy {busy:.1f} "
+        f"ms (idle {100 * (1 - busy / 1e3 / wall):.1f}% of the wall), "
+        f"{n_ops} device ops summing {dev_ms:.1f} ms | MAS kernel "
+        f"{mas_ms:.4f} ms = {100 * mas_ms / dev_ms:.3f}% of the device time "
+        f"| top: " + "; ".join(f"{n} {v:.2f} ms"
+                               for n, v in by_name.most_common(8))
         + f" | {smi}")
 
 
@@ -614,16 +667,26 @@ def _mas_check(inputs, label: str) -> float:
     return err
 
 
+def _mas_bits(shape) -> str:
+    """Where the kernel keeps a shape's direction bits."""
+    from tts_arabic_torch.ops import build
+    words = build.library().mas_scratch_words(shape[1], shape[2])
+    return "spilled" if words > 0 else "shared"
+
+
 def phase_mas_checks(train: list, val: list) -> dict:
-    """Bit-equality at every shape; at the training run's batches also the
-    kernel's time, the plain version's and the bound."""
+    """Bit-equality at every shape, with the kernel's time; at the training
+    run's batches also the first kernel's time at the same batch, the plain
+    version's time and the bound."""
     from tts_arabic_torch.align.mas import mas as mas_plain
     from tts_arabic_torch.ops import mas as mas_ops
     gen = torch.Generator(device="cuda").manual_seed(0)
     log("[6 MAS kernel checks] kernel vs plain MAS on the card, err = "
-        "max|kernel - plain| (must be 0), durations equal")
-    log(f"    {'case':12} {'B':>3} {'T_mel':>6} {'T_txt':>6} {'err':>5} "
-        f"{'ms':>8} {'plain_ms':>9} {'bound_ms':>9}")
+        "max|kernel - plain| (must be 0), durations equal; bits: where the "
+        "direction bits went; first_ms: the first kernel at the same batch")
+    log(f"    {'case':12} {'B':>3} {'T_mel':>6} {'T_txt':>6} {'bits':>7} "
+        f"{'err':>4} {'ms':>8} {'first_ms':>9} {'plain_ms':>9} "
+        f"{'bound_ms':>9}")
     rows, max_err = [], 0.0
     for label, batch in ([(f"train {i}", b) for i, b in enumerate(train)]
                          + [(f"val {i}", b) for i, b in enumerate(val)]):
@@ -639,13 +702,23 @@ def phase_mas_checks(train: list, val: list) -> dict:
                                          batch["mel_lens"]))
         rows.append(row)
         log(f"    {label:12} {shape[0]:>3} {shape[1]:>6} {shape[2]:>6} "
-            f"{err:>5g} {row['ms']:>8.3f} {row['plain_ms']:>9.3f} "
-            f"{row['bound_ms']:>9.5f}")
-    for label, shape in zip(("full", "ragged", "bucket 3"), MAS_SHAPES):
-        err = _mas_check(_mas_inputs(shape, gen), label)
+            f"{_mas_bits(shape):>7} {err:>4g} {row['ms']:>8.3f} "
+            f"{FIRST_MAS_MS.get(label, math.nan):>9.3f} "
+            f"{row['plain_ms']:>9.3f} {row['bound_ms']:>9.5f}")
+    for label, shape in MAS_SHAPES.items():
+        inputs = _mas_inputs(shape, gen)
+        err = _mas_check(inputs, label)
         max_err = max(max_err, err)
+        ms = cuda_ms(lambda: mas_ops.mas_fused(*inputs))
         log(f"    {label:12} {shape[0]:>3} {shape[1]:>6} {shape[2]:>6} "
-            f"{err:>5g}")
+            f"{_mas_bits(shape):>7} {err:>4g} {ms:>8.3f}")
+        del inputs
+    total, first = (sum(r["ms"] for r in rows),
+                    sum(FIRST_MAS_MS.get(r["label"], math.nan) for r in rows))
+    log(f"    the training run's {len(rows)} calls: {total:.3f} ms, the "
+        f"first kernel {first:.3f} ms, plain "
+        f"{sum(r['plain_ms'] for r in rows):.1f} ms, bound "
+        f"{sum(r['bound_ms'] for r in rows):.5f} ms")
     torch.cuda.empty_cache()
     return dict(rows=rows, max_abs_err=max_err)
 
@@ -766,6 +839,7 @@ def phase_training(config_path, train: list, val: list, mas: dict,
         f"{100 * mas_ms / (sum(steady) * 1e3):.2f}% (phase 6 times) | "
         f"launches {launches} | checkpoint step {restored} reloads equal | "
         f"peak memory {peak_gb:.2f} GB | {smi}")
+    profile_step(trainer.state, train[0], smi)
     return launches
 
 

@@ -150,7 +150,14 @@ def _mas_case(B, T_mel, T_txt, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T_mel,T_txt", [
     (3, 50, 7), (4, 300, 33), (2, 64, 1), (2, 1, 9), (4, 1000, 300),
-    (5, 777, 257), (6, 1850, 368), (2, 130, 1024), (3, 20, 64)])
+    (5, 777, 257), (6, 1850, 368), (2, 130, 1024), (3, 20, 64),
+    # odd widths: rows start off a 16-byte boundary (a stage's bulk copy
+    # starts at the boundary before its first row)
+    (3, 200, 37), (2, 333, 145),
+    # several consumer warps
+    (2, 40, 1025), (2, 30, 2100), (1, 16, 8192),
+    # direction bits spilled to the global scratch
+    (2, 6000, 1200)])
 def test_mas_kernel_bit_equal_to_plain(cuda, B, T_mel, T_txt):
     from tts_arabic_torch.align.mas import mas as mas_plain
     from tts_arabic_torch.ops import mas as mas_ops
@@ -169,12 +176,47 @@ def test_mas_kernel_bit_equal_to_plain(cuda, B, T_mel, T_txt):
 
 
 @pytest.mark.cuda
+def test_mas_kernel_writes_its_whole_output(cuda):
+    """Rows with no path (in_len outside [1, T_txt], out_len < 1) come back
+    all zero, out_len > T_mel is cut to T_mel, and nothing of a reused
+    allocation survives: the wrapper no longer clears the output. The
+    log-attention starts 4 bytes past a 16-byte boundary, so every stage
+    of rows is copied from the boundary before it."""
+    from tts_arabic_torch.align.mas import mas as mas_plain
+    from tts_arabic_torch.ops import mas as mas_ops
+    B, T_mel, T_txt = 6, 90, 40
+    log_attn, _, _ = _mas_case(B, T_mel, T_txt, seed=3)
+    buf = torch.empty(log_attn.numel() + 1, device="cuda")
+    shifted = buf[1:].view(log_attn.shape)
+    shifted.copy_(log_attn)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    in_lens = torch.tensor([40, 0, 41, 12, 7, 40], dtype=torch.int32)
+    out_lens = torch.tensor([90, 50, 60, 0, 200, 3], dtype=torch.int32)
+    ref = mas_plain(log_attn, in_lens, out_lens)
+    # freed at once: the allocator hands its block to the output next
+    torch.full((B, T_mel, T_txt), float("nan"), device="cuda")
+    got = mas_ops.mas_fused(shifted, in_lens.cuda(), out_lens.cuda())
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ref)
+    assert got[1:4].abs().sum() == 0
+
+
+@pytest.mark.cuda
 def test_mas_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     from tts_arabic_torch.ops import mas as mas_ops
     lens = torch.ones(2, dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError, match="T_txt <= 1024"):
-        mas_ops.mas_fused(torch.zeros((2, 4, 1025), device="cuda"), lens,
-                          lens)
+    limit = mas_ops.MAX_TEXT_LEN
+    assert limit >= 8192
+    before = mas_ops.LAUNCHES["mas"]
+    with pytest.raises(ValueError, match=f"T_txt <= {limit}"):
+        mas_ops.mas_fused(torch.zeros((2, 4, limit + 1), device="cuda"),
+                          lens, lens)
+    assert mas_ops.LAUNCHES["mas"] == before
+    # the widest row the kernel takes runs on it
+    got = mas_ops.mas_fused(torch.zeros((2, 4, limit), device="cuda"),
+                            lens, lens)
+    torch.cuda.synchronize()
+    assert mas_ops.LAUNCHES["mas"] == before + 1 and got.sum() == 2
     with pytest.raises(ValueError, match="contiguous"):
         mas_ops.mas_fused(torch.zeros((2, 8, 4), device="cuda").transpose(
             1, 2), lens, lens)

@@ -52,6 +52,10 @@ def _port(fn, attn, in_lens, out_lens):
     (4, 3, 1, 9, False),        # T_mel = 1
     (5, 2, 1, 1, True),
     (6, 6, 300, 57, True),
+    # T_txt past one warp's 1024 columns (the kernel's first design took no
+    # more); the last row of each has out_len < in_len
+    (7, 2, 24, 1100, False),
+    (8, 1, 6, 2100, False),
 ])
 def test_plain_mas_equals_jax_mas(seed, B, T_mel, T_txt, feasible):
     attn, in_lens, out_lens = _case(seed, B, T_mel, T_txt, feasible)
@@ -105,3 +109,16 @@ def test_wrapper_takes_the_plain_version_on_cpu_only():
                           lens)
     with pytest.raises(ValueError, match="contiguous"):
         mas_ops.mas_fused(torch.zeros((2, 3, 4)).transpose(1, 2), lens, lens)
+
+
+def test_split_tool_stamps_every_section_of_the_kernel():
+    """`tools.mas_split` times the kernel's sections by the `// ---- `
+    markers in its source: each of them gets a stamp, in source order."""
+    from tts_arabic_torch.ops import build
+    from tts_arabic_torch.tools.mas_split import stamped
+    text, labels = stamped((build.CSRC / "mas.cu").read_text())
+    assert labels == ["forward pass", "forward done", "output cleared",
+                      "backtrack", "end"]
+    assert [f"MAS_STAMP({k});" in text for k in range(5)] == [True] * 5
+    with pytest.raises(ValueError, match="stamp anchors"):
+        stamped("__global__ void k() {}\n")

@@ -93,5 +93,7 @@ def library() -> ctypes.CDLL:
             getattr(lib, fn).restype = i
         lib.mas_forward.argtypes = [p] * 5 + [i] * 3 + [p]
         lib.mas_forward.restype = i
+        lib.mas_scratch_words.argtypes = [i, i]
+        lib.mas_scratch_words.restype = i
         _lib = lib
         return lib

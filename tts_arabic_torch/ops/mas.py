@@ -2,9 +2,12 @@
 version.
 
 Replaces `tts_arabic_tpu/ops/mas_pallas.py::mas_pallas` (`_opt_kernel`).
-Source: `csrc/mas.cu`, one warp per batch row, direction bits in a global
-scratch tensor; its note gives the design and what bounds it (the
-out_len-long dependent chain, not the bytes). The plain version is
+Source: `csrc/mas.cu`, one block per batch row: a producer warp streams the
+log-attention rows into a shared-memory ring, consumer warps run the DP
+with the direction bits packed by ballot into shared memory (or, for a
+long row, a global scratch tensor), one warp backtracks, and the block
+writes its whole output once. Its note gives the design and what bounds it
+(the out_len-long dependent chain, not the bytes). The plain version is
 `align.mas.mas`, which computes the same function with the same f32
 arithmetic, so the two agree bit for bit.
 
@@ -22,7 +25,7 @@ from ..align.mas import mas as mas_plain
 # kernel launches (plain-version calls are not counted)
 LAUNCHES = {"mas": 0}
 
-MAX_TEXT_LEN = 1024   # csrc/mas.cu: 32 lanes x 32 direction bits
+MAX_TEXT_LEN = 12288  # csrc/mas.cu kMaxTxt: the ring's shared memory
 
 
 def reset_launches() -> None:
@@ -58,21 +61,25 @@ def mas_fused(log_attn: torch.Tensor, in_lens: torch.Tensor,
     B, T_mel, T_txt = log_attn.shape
     if T_txt > MAX_TEXT_LEN:
         raise ValueError(f"the MAS kernel takes T_txt <= {MAX_TEXT_LEN} "
-                         f"(one warp's 32 x 32 direction bits), got {T_txt}")
+                         f"(its row ring's shared memory), got {T_txt}")
     from .build import library
     lib = library()
     dev = log_attn.device
     with torch.cuda.device(dev):
-        out = torch.zeros_like(log_attn)
         if B == 0 or T_mel == 0 or T_txt == 0:
-            return out
+            return torch.zeros_like(log_attn)
+        out = torch.empty_like(log_attn)    # the kernel writes all of it
         ins = in_lens.to(device=dev, dtype=torch.int32).contiguous()
         outs = out_lens.to(device=dev, dtype=torch.int32).contiguous()
-        bits = torch.empty((B, T_mel, 32), dtype=torch.int32, device=dev)
+        words = lib.mas_scratch_words(T_mel, T_txt)
+        # direction bits that do not fit in shared memory
+        bits = (torch.empty((B, words), dtype=torch.int32, device=dev)
+                if words > 0 else None)
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mas_forward(log_attn.data_ptr(), ins.data_ptr(),
                               outs.data_ptr(), out.data_ptr(),
-                              bits.data_ptr(), B, T_mel, T_txt, stream)
+                              None if bits is None else bits.data_ptr(),
+                              B, T_mel, T_txt, stream)
         if err != 0:
             raise RuntimeError(f"mas kernel launch failed: cudaError {err}")
         LAUNCHES["mas"] += 1
