@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (written for an
 H100): builds the CUDA kernels from `tts_arabic_torch/csrc`, holds every
 kernel variant against its plain PyTorch version on the card, drives
-`FastPitch2Wave.tts()` and FastPitch training (`apps.train_fastpitch`) at
-full width, and checks what comes out.
+`FastPitch2Wave.tts()`, FastPitch training (`apps.train_fastpitch`) and
+the serving surface (`stream()`, long-form, the vowelizers, the HTTP
+server and the inference CLI) at full width, and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -67,6 +68,37 @@ Phases, one line each (and a table for the kernel checks):
 8. whole-step check: one f32 train step (TF32 off, cuDNN deterministic)
    from one state, batch and dropout seed, with MAS on the kernel and then
    on the plain version; equal losses, gradients within 1e-5 of their norm
+9. streaming, phase 4's configuration: the bf16 ResBlock kernels at one
+   streamed window's shapes (B = 1, 160 frames) against the plain version,
+   with ms, plain ms and bound summed per chunk; then `capture_graphs()`
+   (its seconds and device memory), and `stream()` of the first 4 or more
+   prompts joined (8 chunks at least; chunks of 128 frames, overlap 16)
+   against `tts_single`, both replaying the one-row encode and decoder
+   graphs: equal lengths, SNR > STREAM_BF16_SNR against the graphed and
+   the eager `tts_single`, 27 wide and 3 narrow launches per vocoded window
+   (counters set to 0 just before the stream, read just after), every
+   ResBlock call of a stream and of the clamped last window against the
+   plain version, the speculation fallback (STREAM_SPEC_FRAMES = 1), int16
+   and mu-law chunks, the host cost of the per-call weight casts, time to
+   the first chunk against the whole `tts_single` (3 runs each, host
+   clock; first < 0.75 x whole with the graphs on both sides; the same
+   pair eagerly, printed beside it), then one request for each of the 16
+   prompts at mixed speeds and pitches (first chunk and whole call, each
+   stream against the eager `tts_single` of its text and rate), and
+   `tts_long` of the 16 prompts; then in f32, max |stream - tts_single|
+   <= 1e-4 with and without the speculation, and the graphed
+   `tts_single` against the eager
+10. vowelizers: seeded Shakkala and Shakkelha on the card, `predict` of 16
+   lines of data/test_arab.txt (diacritics stripped) batched against one
+   by one (equal strings, |dprob| <= 1e-5), then `tts(lines,
+   vowelizer="shakkelha")` with predict's share of the time
+11. apps: the port's HTTP server on 127.0.0.1 (a free port, a thread)
+   with a one-entry full-width bf16 registry, after `warmup()`: `/api/tts`
+   writes its wav, `/api/tts/stream` of each of the 16 prompts at mixed
+   rates gives the bytes of the model's own `stream()`, with the time to
+   the first byte of each; then the inference CLI on
+   the 16 prompts from a `states.ckpt` into a temp dir under build/,
+   within 1 LSB of the served model's `tts()`
 
 Then nvidia-smi's line again, the kernels' JSON record (for each ResBlock
 variant its ms, plain_ms and bound_ms summed over the serving path's bf16
@@ -130,6 +162,27 @@ FIRST_MAS_MS = {"train 0": 0.384, "train 1": 0.313, "train 2": 0.352,
                 "train 3": 0.263, "train 4": 0.178, "train 5": 0.347,
                 "val 0": 0.318}
 GRAD_TOL = 1e-5         # phase 8: |g_kernel - g_plain| / |g_plain|
+# the serving slice (phases 9-11): stream() windows of STREAM_CHUNK frames
+# plus STREAM_OVERLAP on each side
+STREAM_CHUNK, STREAM_OVERLAP = 128, 16
+STREAM_WINDOW = STREAM_CHUNK + 2 * STREAM_OVERLAP
+# phase 9's long utterance: the first N prompts joined, N from this up to
+# the first that makes STREAM_MIN_CHUNKS chunks (the random model's
+# durations depend on the whole text: on the card the first 4 made 7
+# chunks, the first 5 made 5)
+N_STREAM_PROMPTS = 4
+STREAM_MIN_CHUNKS = 8
+STREAM_F32_TOL = 1e-4   # f32: max |stream - tts_single|
+# bf16: SNR (dB) of stream against tts_single: the first reading on an
+# H100 (39.56 dB) less 3
+STREAM_BF16_SNR = 36.56
+FIRST_CHUNK_SHARE = 0.75  # time to the first chunk / the whole tts_single
+# the mixed requests of phases 9 and 11: request i runs at speed
+# MIX_SPEEDS[i % 5] and pitch_mul MIX_PITCHES[i % 3] (the server's rate
+# slider moves in steps of 0.05)
+MIX_SPEEDS = (1.0, 0.85, 1.1, 0.95, 1.25)
+MIX_PITCHES = (1.0, 1.1, 0.9)
+DIAC_TOL = 1e-5         # phase 10: |batched - single| class probability
 
 
 def log(msg: str) -> None:
@@ -202,33 +255,35 @@ def phase_build() -> None:
         log(f"    ptxas: {ln}")
 
 
-def _case(C: int, k: int, T: int, dtype, gen: torch.Generator):
+def _case(C: int, k: int, T: int, dtype, gen: torch.Generator,
+          batch: int = BATCH):
     """Inputs on the card: x ~ N(0, 1), weights ~ N(0, 1/(k C)) (the
     lecun-normal scale of the random init), biases ~ N(0, 0.1)."""
     n = len(DILATIONS)
     rand = lambda *shape: torch.randn(  # noqa: E731
         shape, generator=gen, device="cuda")
-    x = rand(BATCH, T, C)
+    x = rand(batch, T, C)
     w1, w2 = (rand(n, C, C, k) / (k * C) ** 0.5 for _ in range(2))
     b1, b2 = (0.1 * rand(n, C) for _ in range(2))
     return x.to(dtype), w1.to(dtype), b1, w2.to(dtype), b2
 
 
-def bound(C: int, k: int, T: int, dtype) -> tuple[float, float]:
-    """Least times (ms) for one ResBlock1 on [BATCH, T, C]: 6 convs of
+def bound(C: int, k: int, T: int, dtype,
+          batch: int = BATCH) -> tuple[float, float]:
+    """Least times (ms) for one ResBlock1 on [batch, T, C]: 6 convs of
     2 k C^2 FLOPs per row at the dtype's peak, and x read once, y written
     once and the weights read once at the memory rate."""
     esize = torch.finfo(dtype).bits // 8
-    flops = 12 * k * C * C * BATCH * T
-    nbytes = 2 * BATCH * T * C * esize + 6 * k * C * C * esize + 6 * C * 4
+    flops = 12 * k * C * C * batch * T
+    nbytes = 2 * batch * T * C * esize + 6 * k * C * C * esize + 6 * C * 4
     return flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
-def _rel_err(rb, name, C, k, T, dtype, gen):
+def _rel_err(rb, name, C, k, T, dtype, gen, batch: int = BATCH):
     """Runs the kernel once on fresh inputs and holds it against the plain
     version in f32 on the same inputs; returns (inputs, abs err, rel
     err)."""
-    x, w1, b1, w2, b2 = _case(C, k, T, dtype, gen)
+    x, w1, b1, w2, b2 = _case(C, k, T, dtype, gen, batch)
     got = _launch(rb, name, x, w1, b1, w2, b2, k).float()
     ref = rb.resblock1_plain(x.float(), w1.float(), b1, w2.float(), b2, k,
                              DILATIONS)
@@ -313,9 +368,9 @@ def load_prompts(n: int) -> list[str]:
     return lines[:n]
 
 
-def make_pipe(compute_dtype):
+def make_pipe(compute_dtype, arabic_in: bool = False):
     from tts_arabic_torch.infer import FastPitch2Wave
-    pipe = FastPitch2Wave(seed=0, arabic_in=False,
+    pipe = FastPitch2Wave(seed=0, arabic_in=arabic_in,
                           compute_dtype=compute_dtype, device="cuda")
     # random init predicts ~0 frames per token; +2.0 gives ~6.5 (a
     # realistic Arabic speech rate at 86 frames/s)
@@ -885,6 +940,572 @@ def phase_step_check(batch: dict, smi: str) -> None:
                              f"{norm}")
 
 
+# ---- the serving slice: stream(), vowelizers, server and CLI -----------------
+
+def snr_db(ref: np.ndarray, got: np.ndarray) -> float:
+    ref, got = ref.astype(np.float64), got.astype(np.float64)
+    return float(10 * np.log10(np.mean(ref ** 2)
+                               / (np.mean((ref - got) ** 2) + 1e-30)))
+
+
+def phase_stream_kernels() -> dict:
+    """The bf16 kernels at one streamed window's shapes (B = 1,
+    STREAM_WINDOW frames at each stage's samples per frame), against the
+    plain version in f32, with the kernel's ms, the plain version's ms (in
+    bf16) and the bound; returns each variant's sums over one chunk's
+    launches."""
+    from tts_arabic_torch.ops import resblock as rb
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    set_tf32(False)
+    dtype = torch.bfloat16
+    log(f"[9 stream kernels] bf16, B=1, T = {STREAM_WINDOW} frames x the "
+        "stage's samples per frame; err = max|kernel - plain| / max|plain|")
+    log(f"    {'variant':17} {'C':>4} {'k':>3} {'T':>7} {'err':>9} "
+        f"{'tol':>7} {'ms':>9} {'plain_ms':>9} {'bound_ms':>9}")
+    per_chunk = {}
+    for C in WIDE_CHANNELS + (32,):
+        name = rb.variant(C)
+        T = STREAM_WINDOW * STAGE_T[C]
+        for k in KERNEL_SIZES:
+            args, err, rel = _rel_err(rb, name, C, k, T, dtype, gen, batch=1)
+            ms = cuda_ms(lambda: rb.resblock1(*args, k, DILATIONS))
+            plain_ms = cuda_ms(lambda: rb.resblock1_plain(*args, k,
+                                                          DILATIONS))
+            t_ops, t_bytes = bound(C, k, T, dtype, batch=1)
+            log(f"    {name:17} {C:>4} {k:>3} {T:>7} {rel:>9.2e} "
+                f"{TOL[dtype]:>7.0e} {ms:>9.4f} {plain_ms:>9.4f} "
+                f"{max(t_ops, t_bytes):>9.4f}")
+            s = per_chunk.setdefault(name, dict(ms=0.0, plain_ms=0.0,
+                                                bound_ms=0.0))
+            s["ms"] += ms
+            s["plain_ms"] += plain_ms
+            s["bound_ms"] += max(t_ops, t_bytes)
+            del args
+    for name, s in per_chunk.items():
+        log(f"    one chunk, {name}: {s['ms']:.4f} ms (plain "
+            f"{s['plain_ms']:.4f}, bound {s['bound_ms']:.4f} = "
+            f"{100 * s['bound_ms'] / s['ms']:.1f}% of the kernel's time)")
+    torch.cuda.empty_cache()
+    return per_chunk
+
+
+def weight_prep_ms(pipe, reps: int = 20) -> float:
+    """Host ms of the per-call weight preparation of one window's
+    ResBlocks, as `ResBlock1.forward` and `ops.resblock.resblock1` do it
+    (stacks, `kernel_weights`' permute and cast, the bias casts), ending in
+    a synchronize; the mean of `reps`."""
+    from tts_arabic_torch.ops import resblock as rb
+    dtype = pipe.compute_dtype or torch.float32
+
+    def prep():
+        for blk in pipe.vocoder.resblocks:
+            for convs in (blk.convs1, blk.convs2):
+                rb.kernel_weights(torch.stack([c.weight for c in convs]),
+                                  dtype)
+                torch.stack([c.bias for c in convs]).contiguous().to(
+                    torch.float32)
+
+    prep()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        prep()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _checked_resblock(records: list):
+    """`resblock1` through the kernel, each call also held against the
+    plain version in f32 on the same input; records (C, T, x 16-byte
+    aligned, rel err)."""
+    from tts_arabic_torch.ops import resblock as rb
+
+    def run(x, w1, b1, w2, b2, k, dilations):
+        out = rb.resblock1(x, w1, b1, w2, b2, k, dilations)
+        w1f, w2f = (w.to(x.dtype).float() for w in (w1, w2))
+        ref = rb.resblock1_plain(x.float(), w1f, b1.float(), w2f, b2.float(),
+                                 k, dilations)
+        err = float((out.float() - ref).abs().max() / ref.abs().max())
+        records.append((x.shape[-1], x.shape[1], x.data_ptr() % 16 == 0,
+                        err))
+        return out
+
+    return run
+
+
+def capture(pipe) -> tuple[float, float]:
+    """pipe's one-row encode and decoder graphs captured in its decode
+    dtype: (wall seconds, MiB of device memory they hold)."""
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    pipe.model.capture_graphs(pipe.compute_dtype)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0,
+            (torch.cuda.memory_reserved() - reserved) / 2 ** 20)
+
+
+def eager(pipe):
+    """pipe's CUDA graphs set aside while the block runs: its one-row
+    encodes and decodes run eagerly."""
+    return mock.patch.dict(pipe.model._graphs, clear=True)
+
+
+def first_and_whole(pipe, text: str, kw: dict) -> tuple[list, list]:
+    """3 runs each, host clock: seconds to the first chunk of
+    stream(text) (the rest drained after the clock stops) and of the whole
+    tts_single(text)."""
+    firsts, fulls = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        gen = pipe.stream(text, **kw)
+        next(gen)
+        firsts.append(time.perf_counter() - t0)
+        for _ in gen:
+            pass
+        t0 = time.perf_counter()
+        pipe.tts_single(text, denoise=kw["denoise"])
+        fulls.append(time.perf_counter() - t0)
+    return firsts, fulls
+
+
+def mixed_requests(pipe, prompts: list[str], kw: dict) -> dict:
+    """One request for each prompt, at the MIX_SPEEDS and MIX_PITCHES in
+    turn: the seconds to its stream's first chunk and to its whole
+    tts_single, both replaying the graphs; each stream must hold the eager
+    tts_single of its text and rate at STREAM_BF16_SNR."""
+    from tts_arabic_torch.infer import pipeline as pl
+    out = dict(first=[], whole=[], snr=[], buckets=[], chunks=0, audio_s=0.0)
+    for i, text in enumerate(prompts):
+        rate = dict(speed=MIX_SPEEDS[i % len(MIX_SPEEDS)],
+                    pitch_mul=MIX_PITCHES[i % len(MIX_PITCHES)])
+        replays = pipe.model.graph_replays
+        t0 = time.perf_counter()
+        gen = pipe.stream(text, **rate, **kw)
+        chunks = [next(gen)]
+        out["first"].append(time.perf_counter() - t0)
+        chunks += list(gen)
+        t0 = time.perf_counter()
+        pipe.tts_single(text, denoise=kw["denoise"], **rate)
+        out["whole"].append(time.perf_counter() - t0)
+        if pipe.model.graph_replays - replays < 4:
+            raise AssertionError(f"request {i} replayed "
+                                 f"{pipe.model.graph_replays - replays} "
+                                 "graphs")
+        with eager(pipe):
+            want = pipe.tts_single(text, denoise=kw["denoise"], **rate)
+        got = np.concatenate(chunks)
+        if got.shape != want.shape:
+            raise AssertionError(f"request {i}: stream {got.shape} vs "
+                                 f"eager tts_single {want.shape}")
+        out["snr"].append(snr_db(want, got))
+        out["buckets"].append(pl._pick_mel_bucket(len(want)
+                                                  // pipe.hop_length))
+        out["chunks"] += len(chunks)
+        out["audio_s"] += len(got) / pipe.sample_rate
+    if not min(out["snr"]) > STREAM_BF16_SNR:
+        raise AssertionError(f"mixed requests: SNR {out['snr']}")
+    return out
+
+
+def phase_stream(smi: str) -> dict:
+    """stream() of the first prompts joined (N_STREAM_PROMPTS or more), at
+    full width in bf16 (phase 4's configuration) with the one-row graphs
+    captured, against tts_single: lengths, SNR against the graphed and the
+    eager tts_single, launches per chunk (the counters set to 0 just before
+    the counted stream and read just after), every launch and the clamped
+    last window against the plain version, the speculation fallback, int16
+    and mu-law chunks, the weight preparation's host cost, time to the
+    first chunk against the whole tts_single (graphs on both sides, then
+    eager on both), the mixed requests, tts_long; then in f32."""
+    from tts_arabic_torch.audio import mulaw_encode
+    from tts_arabic_torch.infer import longform
+    from tts_arabic_torch.infer import pipeline as pl
+    from tts_arabic_torch.ops import resblock as rb
+    from tts_arabic_torch.vocoder import hifigan
+    prompts = load_prompts(N_PROMPTS)
+    kw = dict(chunk_frames=STREAM_CHUNK, overlap=STREAM_OVERLAP,
+              denoise=0.005)
+    pipe = make_pipe(torch.bfloat16)
+    capture_s, graph_mib = capture(pipe)
+    hop = pipe.hop_length
+    for n_joined in range(N_STREAM_PROMPTS, len(prompts) + 1):
+        text = " ".join(prompts[:n_joined])
+        frames = pipe.model.ttmel(text).shape[1]
+        if frames > (STREAM_MIN_CHUNKS - 1) * STREAM_CHUNK:
+            break
+    else:
+        raise AssertionError(f"no run of the prompts makes "
+                             f"{STREAM_MIN_CHUNKS} chunks")
+    full = pipe.tts_single(text, denoise=0.005)
+    with eager(pipe):
+        full_eager = pipe.tts_single(text, denoise=0.005)
+    list(pipe.stream(text, **kw))               # warm
+    torch.cuda.synchronize()
+    replays = pipe.model.graph_replays
+    rb.reset_launches()
+    chunks = list(pipe.stream(text, **kw))
+    launches = dict(rb.LAUNCHES)
+    replayed = pipe.model.graph_replays - replays
+    n = len(chunks)
+    streamed = np.concatenate(chunks)
+    if n < STREAM_MIN_CHUNKS or any(len(c) != STREAM_CHUNK * hop
+                                    for c in chunks[:-1]):
+        raise AssertionError(f"{n} chunks of {[len(c) for c in chunks]}")
+    if streamed.shape != full.shape or not np.isfinite(streamed).all():
+        raise AssertionError(f"stream {streamed.shape} vs tts_single "
+                             f"{full.shape}")
+    # a first window vocoded from the speculative mel is thrown away when
+    # the utterance outruns its bucket, and vocoded again
+    spec_bucket = pl._pick_mel_bucket(max(STREAM_WINDOW,
+                                          pl.STREAM_SPEC_FRAMES))
+    speculated = len(full) // hop + STREAM_WINDOW <= spec_bucket
+    windows = n + (0 if speculated else 1)
+    per_window = {k: v / windows for k, v in launches.items()}
+    if per_window != {"resblock1_wide": 27, "resblock1_narrow": 3}:
+        raise AssertionError(f"launches {launches} over {windows} windows")
+    if replayed != (2 if speculated else 3):
+        raise AssertionError(f"the stream replayed {replayed} graphs")
+    snr = snr_db(full, streamed)
+    snr_eager = (snr_db(full_eager, streamed)
+                 if full_eager.shape == full.shape else -math.inf)
+
+    records = []
+    with mock.patch.object(hifigan, "resblock1", _checked_resblock(records)):
+        list(pipe.stream(text, **kw))
+        n_stream_calls = len(records)
+        m = pipe.model
+        enc, _, _ = m._encode_batch([m.tokenize(text)], 0, 1.0, 0.0, None,
+                                    1.0)
+        bucket = pl._pick_mel_bucket(max(int(enc["dec_len_max"]),
+                                         STREAM_WINDOW))
+        with pl._exact_f32():
+            mel, _ = m._decode_fn(enc["enc_out"].to(torch.bfloat16),
+                                  enc["dur_pred"], 1.0, max_frames=bucket)
+            pipe._stream_chunk_fn(mel, bucket - STREAM_WINDOW, 0.005,
+                                  window=STREAM_WINDOW, use_denoiser=True,
+                                  out_int16=False)
+    worst = max(r[3] for r in records)
+    if worst > TOL[torch.bfloat16] or not all(r[2] for r in records):
+        raise AssertionError(f"stream ResBlock calls: worst err {worst}, "
+                             f"aligned {[r[2] for r in records]}")
+
+    with mock.patch.object(pl, "STREAM_SPEC_FRAMES", 1):
+        fallback = np.concatenate(list(pipe.stream(text, **kw)))
+    snr_fallback = snr_db(full, fallback) if fallback.shape == full.shape \
+        else -math.inf
+    for name, value in (("stream", snr), ("fallback", snr_fallback),
+                        ("stream vs eager", snr_eager)):
+        if not value > STREAM_BF16_SNR:
+            raise AssertionError(f"bf16 {name} vs tts_single: SNR {value:.2f}"
+                                 f" dB <= {STREAM_BF16_SNR}")
+
+    s16 = list(pipe.stream(text, out_int16=True, **kw))
+    mu = list(pipe.stream(text, out_int16="mulaw", **kw))
+    if not (all(c.dtype == np.int16 for c in s16)
+            and all(c.dtype == np.uint8 for c in mu)):
+        raise AssertionError("int16 / mu-law chunk dtypes")
+    want16 = (np.clip(streamed, -1.0, 1.0) * 32767.0).astype(np.int32)
+    want_mu = mulaw_encode(torch.from_numpy(streamed)).numpy().astype(
+        np.int32)
+    d16 = int(np.abs(np.concatenate(s16).astype(np.int32) - want16).max())
+    dmu = int(np.abs(np.concatenate(mu).astype(np.int32) - want_mu).max())
+    if d16 > 1 or dmu > 1:
+        raise AssertionError(f"int16 off by {d16} LSB, mu-law by {dmu}")
+
+    prep_ms = weight_prep_ms(pipe)
+    firsts, fulls = first_and_whole(pipe, text, kw)
+    with eager(pipe):
+        eager_firsts, eager_fulls = first_and_whole(pipe, text, kw)
+    first_s, full_s = min(firsts), min(fulls)
+    mix = mixed_requests(pipe, prompts, kw)
+
+    paragraph = "".join(p + ("؟ " if i % 2 else ". ")
+                        for i, p in enumerate(prompts))
+    sentences = longform.split_sentences(paragraph)
+    if sentences != [p.strip() for p in prompts]:
+        raise AssertionError(f"split_sentences gave {len(sentences)}")
+    long_wave = longform.tts_long(pipe, paragraph, denoise=0.005)
+    waves = pipe.tts(sentences, batch_size=16, denoise=0.005)
+    pause = int(round(0.25 * pipe.sample_rate))
+    want_len = sum(len(w) for w in waves) + pause * (len(waves) - 1)
+    if len(long_wave) != want_len or not np.isfinite(long_wave).all():
+        raise AssertionError(f"tts_long {len(long_wave)} samples, "
+                             f"expected {want_len}")
+    log(f"[9 stream] bf16 stream() of the first {n_joined} prompts joined "
+        f"({frames} frames): {n} chunks of {STREAM_CHUNK} frames (window "
+        f"{STREAM_WINDOW}), {len(full)} samples = tts_single's, the first "
+        f"window from the speculative mel: {speculated} | SNR vs tts_single "
+        f"{snr:.2f} dB, speculation fallback {snr_fallback:.2f} dB (gate > "
+        f"{STREAM_BF16_SNR}) | launches {launches} = {per_window} per "
+        f"vocoded window | every ResBlock call of a stream "
+        f"({n_stream_calls}) and of the clamped last window (start "
+        f"{bucket - STREAM_WINDOW} of bucket {bucket}) vs plain: worst err "
+        f"{worst:.2e} (tol {TOL[torch.bfloat16]:.0e}), x 16-byte aligned in "
+        f"all {len(records)} | int16 within {d16} LSB, mu-law within {dmu} "
+        f"code of the float chunks | weight preparation {prep_ms:.3f} ms "
+        f"host a chunk | {smi}")
+    log(f"[9 stream graphs] capture_graphs(): {capture_s:.3f} s, "
+        f"{len(pipe.model._graphs)} graphs holding {graph_mib:.1f} MiB of "
+        f"device memory | the stream replayed {replayed} | the stream "
+        f"against the eager tts_single: SNR {snr_eager:.2f} dB | {smi}")
+    log(f"[9 stream latency] host clock, 3 runs, one-row encode and decode "
+        f"replayed from graphs on both sides: first chunk min "
+        f"{first_s * 1e3:.2f} ms, median {np.median(firsts) * 1e3:.2f} ms | "
+        f"whole tts_single min {full_s * 1e3:.2f} ms, median "
+        f"{np.median(fulls) * 1e3:.2f} ms | first / whole "
+        f"{first_s / full_s:.3f} (< {FIRST_CHUNK_SHARE}) | eager on both "
+        f"sides: first chunk min {min(eager_firsts) * 1e3:.2f} ms, median "
+        f"{np.median(eager_firsts) * 1e3:.2f} ms, whole min "
+        f"{min(eager_fulls) * 1e3:.2f} ms, median "
+        f"{np.median(eager_fulls) * 1e3:.2f} ms, first / whole "
+        f"{min(eager_firsts) / min(eager_fulls):.3f} | audio "
+        f"{len(full) / pipe.sample_rate:.2f} s | tts_long of the "
+        f"{len(prompts)} prompts: {len(long_wave)} samples = the sentences' "
+        f"{sum(len(w) for w in waves)} + {len(waves) - 1} pauses of {pause} "
+        f"| {smi}")
+    log(f"[9 stream mix] {len(prompts)} requests, one per prompt, each a "
+        f"text first met here, speeds {MIX_SPEEDS} and pitch_mul "
+        f"{MIX_PITCHES} in turn, graphs: first chunk min "
+        f"{min(mix['first']) * 1e3:.2f} ms, median "
+        f"{np.median(mix['first']) * 1e3:.2f} ms, max "
+        f"{max(mix['first']) * 1e3:.2f} ms | whole tts_single min "
+        f"{min(mix['whole']) * 1e3:.2f} ms, median "
+        f"{np.median(mix['whole']) * 1e3:.2f} ms, max "
+        f"{max(mix['whole']) * 1e3:.2f} ms; by request, ms (mel bucket): "
+        + ", ".join(f"{w * 1e3:.1f} ({b})"
+                    for w, b in zip(mix["whole"], mix["buckets"]))
+        + f" | {mix['chunks']} chunks, "
+        f"{mix['audio_s']:.2f} s of audio | each stream against its eager "
+        f"tts_single: worst SNR {min(mix['snr']):.2f} dB | {smi}")
+    if not first_s < FIRST_CHUNK_SHARE * full_s:
+        raise AssertionError(f"first chunk {first_s * 1e3:.1f} ms >= "
+                             f"{FIRST_CHUNK_SHARE} x tts_single "
+                             f"{full_s * 1e3:.1f} ms")
+    del pipe, mel, enc
+    torch.cuda.empty_cache()
+
+    pipe = make_pipe(None)
+    with eager(pipe):
+        full_eager = pipe.tts_single(text, denoise=0.005)
+    capture(pipe)
+    full = pipe.tts_single(text, denoise=0.005)
+    if full.shape != full_eager.shape:
+        raise AssertionError(f"f32 graphs {full.shape} vs eager "
+                             f"{full_eager.shape}")
+    errs = [float(np.abs(full - full_eager).max())]
+    for spec in (pl.STREAM_SPEC_FRAMES, 1):
+        with mock.patch.object(pl, "STREAM_SPEC_FRAMES", spec):
+            got = np.concatenate(list(pipe.stream(text, **kw)))
+        if got.shape != full.shape:
+            raise AssertionError(f"f32 stream {got.shape} vs {full.shape}")
+        errs.append(float(np.abs(got - full).max()))
+    log(f"[9 stream f32] max|stream - tts_single| {errs[1]:.2e}, with the "
+        f"speculation fallback {errs[2]:.2e}, graphed tts_single against "
+        f"the eager {errs[0]:.2e} (tol {STREAM_F32_TOL:.0e}) | {smi}")
+    if max(errs) > STREAM_F32_TOL:
+        raise AssertionError(f"f32 stream differs by {max(errs)}")
+    del pipe
+    torch.cuda.empty_cache()
+    return dict(launches=launches, chunks=n)
+
+
+def arabic_lines(n: int) -> list[str]:
+    """The first n sentences of data/test_arab.txt, diacritics stripped."""
+    harakat = set("ًٌٍَُِّْ")
+    out = []
+    for line in (ROOT / "data" / "test_arab.txt").read_text(
+            encoding="utf-8").splitlines()[:n]:
+        out.append("".join(ch for ch in line.split('"')[3]
+                           if ch not in harakat))
+    return out
+
+
+def phase_vowelizers(smi: str) -> None:
+    """Seeded Shakkala and Shakkelha on the card: predict(list) of 16
+    lines against each line alone (equal strings, |dprob| <= DIAC_TOL),
+    then tts() of the lines with vowelizer="shakkelha"."""
+    from tts_arabic_torch.diacritizers import Shakkala, Shakkelha
+    lines = arabic_lines(N_PROMPTS)
+    for cls in (Shakkala, Shakkelha):
+        model = cls(seed=0, device="cuda")
+        model.predict(lines)                    # warm
+        t0 = time.perf_counter()
+        batch, probs = model.predict(lines, return_probs=True)
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        single = [model.predict(t, return_probs=True) for t in lines]
+        single_ms = (time.perf_counter() - t0) * 1e3
+        dprob = max(float(np.abs(p - q).max())
+                    for p, (_, q) in zip(probs, single))
+        same = sum(b == s for b, (s, _) in zip(batch, single))
+        log(f"[10 vowelizer] {cls.__name__} seeded on the card: predict of "
+            f"{len(lines)} lines batched {batch_ms:.1f} ms, one by one "
+            f"{single_ms:.1f} ms | strings equal {same}/{len(lines)}, max "
+            f"|dprob| {dprob:.2e} (tol {DIAC_TOL:.0e}) | {smi}")
+        if same != len(lines) or not dprob <= DIAC_TOL:
+            raise AssertionError(f"{cls.__name__}: batched differs from "
+                                 "single")
+        del model
+    pipe = make_pipe(torch.bfloat16, arabic_in=True)
+    kw = dict(vowelizer="shakkelha", batch_size=BATCH, denoise=0.005)
+    pipe.tts(lines, **kw)                       # warm
+    vowelizer = pipe.model._vowelizers["shakkelha"]
+    predict = vowelizer.predict
+    spent = []
+
+    def timed_predict(text, *a, **k):
+        t0 = time.perf_counter()
+        out = predict(text, *a, **k)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    with mock.patch.object(vowelizer, "predict", timed_predict):
+        t0 = time.perf_counter()
+        waves = pipe.tts(lines, **kw)
+        wall = time.perf_counter() - t0
+    mels = pipe.model.ttmel(lines, batch_size=BATCH, vowelizer="shakkelha")
+    for w, m in zip(waves, mels):
+        if w.size != m.shape[1] * pipe.hop_length or not np.isfinite(w).all():
+            raise AssertionError("vowelized tts(): wave length or values")
+    audio_s = sum(w.size for w in waves) / pipe.sample_rate
+    log(f"[10 vowelized tts] tts() of the {len(lines)} lines, "
+        f"vowelizer='shakkelha', bf16, batch {BATCH}: {audio_s:.2f} s of "
+        f"audio in {wall * 1e3:.1f} ms, of which predict "
+        f"{sum(spent) * 1e3:.1f} ms in {len(spent)} calls | {smi}")
+    del pipe
+    torch.cuda.empty_cache()
+
+
+def _post(port: int, path: str, body: dict):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    conn.request("POST", path, json.dumps(body),
+                 {"Content-Type": "application/json"})
+    return conn, conn.getresponse()
+
+
+def phase_apps(smi: str, tmp: pathlib.Path) -> None:
+    """The port's server on 127.0.0.1 (a free port, a thread) with a
+    one-entry full-width bf16 registry, after its warmup(): /api/tts writes
+    a wav; /api/tts/stream of each of the 16 prompts at the MIX_SPEEDS in
+    turn, each s16le body equal to the model's own stream() of that text
+    and rate, with its time to the first byte; then the inference CLI on
+    the 16 prompts, against the same model's tts()."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from scipy.io import wavfile
+
+    from tts_arabic_torch.apps import inference, server
+    from tts_arabic_torch.runtime.checkpoint import save_states
+    prompts = load_prompts(N_PROMPTS)
+    manager = server.TTSManager([{"name": "fastpitch-bf16",
+                                  "type": "fastpitch",
+                                  "compute_dtype": "bfloat16"}],
+                                device="cuda")
+    _, model = manager.models[0]
+    with torch.no_grad():
+        model.model.model.duration_predictor.fc.bias.add_(2.0)
+    warm_s = manager.warmup()
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), server.make_handler(manager))
+    port = httpd.server_address[1]
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    text = prompts[0]
+    body = {"buckw": text, "rate": 1.0, "denoise": 0.005}
+    try:
+        conn, resp = _post(port, "/api/tts", body)
+        waves = json.loads(resp.read())["waves"]
+        conn.close()
+        wav = server._STATIC / pathlib.Path(waves[0]["url"]).name
+        if resp.status != 200 or wav.read_bytes()[:4] != b"RIFF":
+            raise AssertionError(f"/api/tts: {resp.status}, {waves}")
+        ttfb, n_bytes, spans = [], 0, []
+        stream = manager.stream
+
+        def timed_stream(*a, **k):
+            """manager.stream, stamping when the handler calls it and when
+            its first chunk is ready."""
+            called = time.perf_counter()
+            name, sr, gen = stream(*a, **k)
+
+            def stamped():
+                first = next(gen, b"")
+                spans.append((called, time.perf_counter()))
+                yield first
+                yield from gen
+            return name, sr, stamped()
+
+        with mock.patch.object(manager, "stream", timed_stream):
+            for i, text in enumerate(prompts):
+                rate = MIX_SPEEDS[i % len(MIX_SPEEDS)]
+                t0 = time.perf_counter()
+                conn, resp = _post(port, "/api/tts/stream",
+                                   {"buckw": text, "rate": rate,
+                                    "denoise": 0.005})
+                first = resp.read(2)
+                ttfb.append(time.perf_counter() - t0)
+                got = first + resp.read()
+                conn.close()
+                spans[-1] = (spans[-1][0] - t0, spans[-1][1] - spans[-1][0],
+                             t0 + ttfb[-1] - spans[-1][1])
+                want = b"".join(np.asarray(c).tobytes()
+                                for c in model.stream(text, speed=rate,
+                                                      denoise=0.005,
+                                                      out_int16=True))
+                if resp.status != 200 or got != want:
+                    raise AssertionError(f"/api/tts/stream of prompt {i}: "
+                                         f"{resp.status}, {len(got)} bytes vs "
+                                         f"{len(want)}")
+                n_bytes += len(got)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    log(f"[11 server] 127.0.0.1:{port}, registry of one full-width bf16 "
+        f"FastPitch: warmup() {warm_s:.2f} s | /api/tts wrote {wav.name} "
+        f"({wav.stat().st_size} bytes) | /api/tts/stream of the "
+        f"{len(prompts)} prompts at speeds {MIX_SPEEDS} in turn: s16le "
+        f"{n_bytes} bytes = the model's stream() of each | time to the "
+        f"first byte min {min(ttfb) * 1e3:.2f} ms, median "
+        f"{np.median(ttfb) * 1e3:.2f} ms, max {max(ttfb) * 1e3:.2f} ms; of "
+        f"it, medians: request to the handler's call "
+        f"{np.median([s[0] for s in spans]) * 1e3:.2f} ms, the first chunk "
+        f"{np.median([s[1] for s in spans]) * 1e3:.2f} ms, headers and "
+        f"chunk to the client {np.median([s[2] for s in spans]) * 1e3:.2f}"
+        f" ms | {smi}")
+
+    ckpt = tmp / "states.ckpt"
+    save_states(ckpt, config={
+        "net_config": model.model.config.to_reference_net_config()},
+        model=model.model.model.state_dict())
+    lst = tmp / "prompts.txt"
+    lst.write_text("\n".join(prompts) + "\n", encoding="utf-8")
+    out_dir = tmp / "samples"
+    t0 = time.perf_counter()
+    inference.main(["--list", str(lst), "--buckwalter", "--checkpoint",
+                    str(ckpt), "--out-dir", str(out_dir), "--batch-size",
+                    str(BATCH)])
+    cli_s = time.perf_counter() - t0
+    want = model.tts(prompts, batch_size=BATCH, denoise=0.005)
+    worst = 0
+    for i, w in enumerate(want):
+        _, got = wavfile.read(out_dir / f"wave_{i:04d}.wav")
+        w16 = (np.clip(w, -1.0, 1.0) * 32767.0).astype(np.int16)
+        if got.shape != w16.shape:
+            raise AssertionError(f"CLI wave {i}: {got.shape} vs {w16.shape}")
+        worst = max(worst, int(np.abs(got.astype(np.int32) - w16).max()))
+    if worst > 1 or not (out_dir / "index.html").is_file():
+        raise AssertionError(f"CLI waves off by {worst} LSB")
+    log(f"[11 inference CLI] {len(prompts)} prompts from a states.ckpt, "
+        f"bf16, batch {BATCH}, into {out_dir.relative_to(ROOT)}: "
+        f"{cli_s:.2f} s wall (model load included) | wavs within {worst} "
+        f"LSB of the served model's tts() | {smi}")
+    del manager, model
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs on the GPU",
@@ -916,6 +1537,12 @@ def main() -> int:
         mas = phase_mas_checks(train, val)
         train_launches = phase_training(config_path, train, val, mas, smi)
         phase_step_check(train[0], smi)
+    phase_stream_kernels()
+    phase_stream(smi)
+    phase_vowelizers(smi)
+    with tempfile.TemporaryDirectory(prefix="smoke_apps_",
+                                     dir=build_dir) as tmp:
+        phase_apps(smi, pathlib.Path(tmp))
     replaces = {
         "resblock1_wide": "tts_arabic_tpu/ops/hifigan_pallas.py:153",
         "resblock1_narrow": "tts_arabic_tpu/ops/hifigan_pallas.py:547",

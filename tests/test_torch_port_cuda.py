@@ -274,3 +274,154 @@ def test_train_step_runs_mas_on_the_kernel(cuda):
         assert state.step == 1 and torch.isfinite(meta["loss"])
         losses.append(float(meta["loss"]))
     assert losses[0] == losses[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("C,T", [(256, 1280), (128, 10240), (64, 20480),
+                                 (32, 40960)])
+def test_resblock1_kernels_at_stream_shapes(cuda, C, T, dtype):
+    """The shapes of one streamed window (B = 1, 160 frames at 8, 64, 128
+    and 256 samples a frame), each width on the variant that serves it."""
+    name = rb.variant(C)
+    for k in (3, 7, 11):
+        g = torch.Generator().manual_seed(C + k)
+        x = torch.randn((1, T, C), generator=g)
+        w1, w2 = (torch.randn((3, C, C, k), generator=g) / (k * C) ** 0.5
+                  for _ in range(2))
+        b1, b2 = (0.1 * torch.randn((3, C), generator=g) for _ in range(2))
+        x, w1, w2 = (t.cuda().to(dtype) for t in (x, w1, w2))
+        b1, b2 = b1.cuda(), b2.cuda()
+        before = rb.LAUNCHES[name]
+        got = rb.resblock1(x, w1, b1, w2, b2, k, DIL)
+        torch.cuda.synchronize()
+        assert rb.LAUNCHES[name] == before + (3 if C > 32 else 1)
+        rel = _rel_err(got, x, w1, b1, w2, b2, k)
+        assert rel <= TOL[dtype], (k, rel)
+
+
+# bf16 stream against tts_single: chip_smoke.py's STREAM_BF16_SNR
+STREAM_BF16_SNR = 36.56
+STREAM_TEXT = "bisomi {ll~ahi {lr~aHoma`ni {lr~aHiymi"
+
+
+def _card_pipe(dtype=None):
+    """Full-width FastPitch and HiFi-GAN V1, seeded, duration bias +2."""
+    from tts_arabic_torch.infer import FastPitch2Wave
+    pipe = FastPitch2Wave(seed=0, arabic_in=False, compute_dtype=dtype,
+                          device="cuda")
+    with torch.no_grad():
+        pipe.model.model.duration_predictor.fc.bias.add_(2.0)
+    return pipe
+
+
+def _eager(pipe):
+    """The pipeline's CUDA graphs set aside while the block runs."""
+    from unittest import mock
+    return mock.patch.dict(pipe.model._graphs, clear=True)
+
+
+def _snr_db(ref, got):
+    import numpy as np
+    ref, got = ref.astype(np.float64), got.astype(np.float64)
+    return float(10 * np.log10(np.mean(ref ** 2)
+                               / (np.mean((ref - got) ** 2) + 1e-30)))
+
+
+@pytest.mark.cuda
+def test_stream_equals_tts_single_on_the_card(cuda):
+    """Full-width FastPitch and HiFi-GAN V1 in f32 on the kernels: the
+    streamed chunks concatenate to tts_single's wave, and both, replayed
+    from the graphs, equal the eager tts_single."""
+    import numpy as np
+    pipe = _card_pipe()
+    text = " ".join([STREAM_TEXT] * 4)
+    eager = pipe.tts_single(text, denoise=0.004)
+    pipe.model.capture_graphs()
+    full = pipe.tts_single(text, denoise=0.004)
+    before = dict(rb.LAUNCHES)
+    replays = pipe.model.graph_replays
+    chunks = list(pipe.stream(text, chunk_frames=48, denoise=0.004))
+    assert pipe.model.graph_replays == replays + 2      # encode, decode
+    assert len(chunks) >= 3
+    assert rb.LAUNCHES["resblock1_wide"] - before["resblock1_wide"] == \
+        27 * len(chunks)
+    assert rb.LAUNCHES["resblock1_narrow"] - before["resblock1_narrow"] == \
+        3 * len(chunks)
+    streamed = np.concatenate(chunks)
+    assert streamed.shape == full.shape == eager.shape
+    assert np.abs(streamed - full).max() <= 1e-4
+    assert np.abs(full - eager).max() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_graphs_replay_any_text_and_rate(cuda):
+    """The graphs are captured on placeholder tokens and scalars, so every
+    replay holds other inputs: in f32, tts_single of texts in two buckets
+    at other speeds, pitches and pitch shifts, and tts() at batch size 1,
+    replay them and give the eager waves."""
+    import numpy as np
+    pipe = _card_pipe()
+    pipe.model.capture_graphs()
+    cases = [(STREAM_TEXT, 1.0, 1.0, 0.0),
+             (STREAM_TEXT, 0.8, 1.2, 0.0),
+             (" ".join([STREAM_TEXT] * 5), 1.25, 0.9, 0.3)]
+    for text, speed, pitch_mul, pitch_add in cases:
+        kw = dict(speed=speed, pitch_mul=pitch_mul, pitch_add=pitch_add,
+                  denoise=0.004)
+        replays = pipe.model.graph_replays
+        got = pipe.tts_single(text, **kw)
+        assert pipe.model.graph_replays == replays + 2
+        with _eager(pipe):
+            want = pipe.tts_single(text, **kw)
+        assert got.shape == want.shape
+        assert np.abs(got - want).max() <= 1e-4, (speed, pitch_mul)
+    texts = [c[0] for c in cases]
+    for got, text in zip(pipe.tts(texts, batch_size=1, denoise=0.004),
+                         texts):
+        want = pipe.tts_single(text, denoise=0.004)
+        assert got.shape == want.shape
+        assert np.abs(got - want).max() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_stream_graphs_replay_and_interleave(cuda):
+    """In bf16, two texts of one text bucket at two speeds replay the same
+    encode graph: each stream holds its eager tts_single at the smoke's
+    SNR gate, a second stream of a text gives the same chunks, and two
+    streams of one pipeline taken in turns give what each gives alone."""
+    import numpy as np
+    pipe = _card_pipe(torch.bfloat16)
+    pipe.model.capture_graphs(torch.bfloat16)
+    text = " ".join([STREAM_TEXT] * 3)
+    texts = [text, text.replace("bisomi", "basami")]
+    speeds = [1.0, 0.9]
+    ids = [pipe.model.tokenize(t) for t in texts]
+    assert (pipe.model._text_length(len(ids[0]), 1)
+            == pipe.model._text_length(len(ids[1]), 1))
+
+    def stream(j):
+        return pipe.stream(texts[j], chunk_frames=32, speed=speeds[j])
+
+    replays = pipe.model.graph_replays
+    alone = [list(stream(j)) for j in range(2)]
+    assert pipe.model.graph_replays == replays + 4
+    assert not all(np.array_equal(a, b) for a, b in zip(*alone))
+    for j in range(2):
+        with _eager(pipe):
+            want = pipe.tts_single(texts[j], speed=speeds[j], denoise=0.005)
+        got = np.concatenate(alone[j])
+        assert got.shape == want.shape
+        assert _snr_db(want, got) > STREAM_BF16_SNR, j
+    again = list(stream(0))
+    assert all(np.array_equal(a, b) for a, b in zip(alone[0], again))
+    gens = [stream(j) for j in range(2)]
+    turns = [[], []]
+    for i in range(max(map(len, alone))):
+        for j, g in enumerate(gens):
+            if i < len(alone[j]):
+                turns[j].append(next(g))
+    for got, want in zip(turns, alone):
+        assert len(got) == len(want)
+        assert all(np.array_equal(a, b) for a, b in zip(got, want))

@@ -41,14 +41,16 @@ def test_module_walk_reaches_every_sub_package():
     import tts_arabic_torch
     names = {m.name for m in pkgutil.walk_packages(
         tts_arabic_torch.__path__, "tts_arabic_torch.")}
-    for sub in ("align", "apps", "audio", "data", "eval", "infer", "models",
-                "ops", "runtime", "text", "train", "vocoder"):
+    for sub in ("align", "apps", "audio", "data", "diacritizers", "eval",
+                "infer", "models", "ops", "runtime", "text", "train",
+                "vocoder"):
         assert f"tts_arabic_torch.{sub}" in names, sub
-    for mod in ("align.mas", "align.prior", "apps.train_fastpitch",
-                "data.dataset", "data.f0", "eval.alignment", "ops.ctc",
-                "ops.mas", "runtime.checkpoint", "runtime.config",
-                "runtime.logging", "train.losses", "train.steps",
-                "train.trainer"):
+    for mod in ("align.mas", "align.prior", "apps.html_report",
+                "apps.inference", "apps.server", "apps.train_fastpitch",
+                "data.dataset", "data.f0", "diacritizers.models",
+                "eval.alignment", "infer.longform", "ops.ctc", "ops.mas",
+                "runtime.checkpoint", "runtime.config", "runtime.logging",
+                "train.losses", "train.steps", "train.trainer"):
         assert f"tts_arabic_torch.{mod}" in names, mod
         importlib.import_module(f"tts_arabic_torch.{mod}")
 
@@ -69,14 +71,17 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     assert offenders == []
 
 
-@pytest.mark.parametrize("entry", ["FastPitch2Wave", "FastPitchTTS"])
+@pytest.mark.parametrize("entry", ["FastPitch2Wave", "FastPitchTTS",
+                                   "Shakkala", "Shakkelha"])
 def test_entry_points_raise_without_cuda(entry, monkeypatch):
-    from tts_arabic_torch import infer
+    from tts_arabic_torch import diacritizers, infer
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cls = getattr(diacritizers if entry.startswith("Shakk") else infer,
+                  entry)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        getattr(infer, entry)()
+        cls()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        getattr(infer, entry)(device="cuda")
+        cls(device="cuda")
 
 
 def test_training_cli_raises_without_cuda(monkeypatch):

@@ -43,6 +43,15 @@ def save_wav(path, x, sample_rate: int = 22050):
     wavfile.write(path, sample_rate, (x * 32767.0).astype(np.int16))
 
 
+def peak_normalize(x: np.ndarray, headroom: float = 0.999) -> np.ndarray:
+    """Scale a waveform so its peak magnitude is `headroom`; silence is
+    returned unchanged."""
+    peak = np.abs(x).max() if x.size else 0.0
+    if peak == 0:
+        return x
+    return (x / peak * headroom).astype(np.float32)
+
+
 def mulaw_encode(x: torch.Tensor, mu: int = 255) -> torch.Tensor:
     """f32 waveform in [-1, 1] -> uint8 mu-law codes (G.711-style
     companding), on the tensor's device, so the pipeline moves a quarter of

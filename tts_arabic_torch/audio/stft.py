@@ -2,6 +2,8 @@
 package's `audio/stft.py`, with `torch.fft` in place of `jnp.fft`)."""
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -9,9 +11,12 @@ import torch.nn.functional as F
 from .mel import frame_signal
 
 
+@functools.lru_cache(maxsize=16)
 def hann(win_length: int, device=None) -> torch.Tensor:
     """Periodic Hann window (torch.hann_window semantics), computed in
-    float64 and rounded to float32 as the JAX package does."""
+    float64 and rounded to float32 as the JAX package does. Made once per
+    length and device: a copy from pageable host memory would first wait
+    for everything queued on the device. Callers must not write to it."""
     w = np.hanning(win_length + 1)[:-1].astype(np.float32)
     return torch.from_numpy(w).to(device)
 

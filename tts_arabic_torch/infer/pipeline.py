@@ -1,6 +1,8 @@
 """High-level TTS inference pipelines (torch counterpart of the JAX
-package's `infer/pipeline.py`): `FastPitchTTS.ttmel()` and
-`FastPitch2Wave.tts()`, accepting Arabic script or Buckwalter, str or list.
+package's `infer/pipeline.py`): `FastPitchTTS.ttmel()`,
+`FastPitch2Wave.tts()` and `FastPitch2Wave.stream()`, accepting Arabic
+script or Buckwalter, str or list, optionally vowelized first by a
+diacritizer (`vowelizer="shakkala"` or `"shakkelha"`).
 
 Execution model, as in the JAX package:
 
@@ -16,6 +18,15 @@ The bucket padding is kept exactly: the vocoder's receptive field and the
 denoiser's reflect pad see the LOG_MEL_PAD frames past each utterance, so
 tail samples depend on it.
 
+`stream()` decodes the whole mel once and vocodes it window by window
+(overlap-discard), so the first audio is ready after one window.
+
+On the card a one-row batch (`tts_single`, `stream`, `tts` at batch size
+1) pads its tokens to a GRAPH_TEXT_BUCKETS length, and its encode and
+decoder replay the CUDA graphs that `capture_graphs()` (run by
+`FastPitch2Wave.warmup`) recorded: at batch 1 their time is the host's
+dispatch of some 400 ops, and a replay is one.
+
 Entry points run on the card: `device=None` means "cuda" and raises when
 there is no CUDA device; pass `device="cpu"` to run on the CPU.
 """
@@ -30,8 +41,10 @@ import torch
 from .. import text as text_frontend
 from ..audio.io import mulaw_encode
 from ..models.convert import fold_weight_norm, load_reference_pth, to_tensors
-from ..models.fastpitch import FastPitch, FastPitchConfig
+from ..models.fastpitch import FastPitch, FastPitchConfig, regulate_len
 from ..models.layers import init_weights
+from ..runtime.checkpoint import load_states
+from ..runtime.config import get_basic_config
 from ..runtime.device import resolve_device
 from ..vocoder import denoiser as denoiser_mod
 from ..vocoder.hifigan import Generator, HiFiGANConfig, chunked_vocode
@@ -40,6 +53,18 @@ LOG_MEL_PAD = float(np.log(1e-5))  # log-mel floor = silence padding value
 
 TEXT_BUCKET = 16
 MEL_BUCKETS = (64, 128, 192, 256, 384, 512, 768, 1024, 1536, 2048, 3072)
+
+# one-row batches on the card pad their tokens to the first of these that
+# holds them (longer ones to a multiple of TEXT_BUCKET), so that their
+# encode replays a graph captured at that length
+GRAPH_TEXT_BUCKETS = (16, 32, 64, 128, 192, 256, 384, 512, 768, 1024, 1536,
+                      2048)
+
+# stream() decodes at this many frames' bucket before it knows the
+# utterance's length, and vocodes its first window from that mel while the
+# host waits for the length (about 24 s of speech); a longer utterance
+# decodes again at its own bucket
+STREAM_SPEC_FRAMES = 2048
 
 
 def _round_up(n: int, mult: int) -> int:
@@ -53,11 +78,40 @@ def _pick_mel_bucket(n: int) -> int:
     return _round_up(n, 1024)
 
 
+def _default_vocoder_paths(vocoder_sd, vocoder_config, enabled=True):
+    """With no vocoder weights given, the basic config's
+    `vocoder_state_path` / `vocoder_config_path` when those files exist,
+    as the reference wrappers load their vocoder (configs/basic.yaml,
+    `models/fastpitch/networks.py:262-276`). `enabled` is False for a
+    seeded pipeline (no acoustic checkpoint), whose results must not
+    depend on what lies in pretrained/."""
+    if vocoder_sd is not None or not enabled:
+        return vocoder_sd, vocoder_config
+    basic = get_basic_config()
+    path = basic.get_path("vocoder_state_path")
+    if path.is_file():
+        vocoder_sd = str(path)
+        if vocoder_config is None:
+            cfg = basic.get_path("vocoder_config_path")
+            vocoder_config = str(cfg) if cfg.is_file() else None
+    return vocoder_sd, vocoder_config
+
+
 def _pad_ids(ids_list: Sequence[np.ndarray], length: int) -> np.ndarray:
     out = np.zeros((len(ids_list), length), np.int64)
     for i, ids in enumerate(ids_list):
         out[i, : len(ids)] = ids
     return out
+
+
+def _output(wave: torch.Tensor, out_int16) -> torch.Tensor:
+    """f32 wave -> the requested output on the device: f32 (False), int16
+    (True) or mu-law uint8 codes ("mulaw")."""
+    if out_int16 == "mulaw":
+        return mulaw_encode(wave)
+    if out_int16:
+        return (torch.clamp(wave, -1.0, 1.0) * 32767.0).to(torch.int16)
+    return wave
 
 
 @contextlib.contextmanager
@@ -80,28 +134,29 @@ def _exact_f32():
 class FastPitchTTS:
     """Text -> mel pipeline (reference `FastPitch` wrapper equivalent).
 
-    checkpoint: a reference `.pth` (read with `weights_only=True`), or None
-    for seeded random weights (tests and benchmarks)."""
+    checkpoint: a reference `.pth` (read with `weights_only=True`), the
+    port's own training checkpoint (`states.ckpt` of
+    `apps.train_fastpitch`), or None for seeded random weights (tests and
+    benchmarks)."""
 
     def __init__(self, checkpoint=None, config: FastPitchConfig | None = None,
-                 arabic_in: bool = True, seed: int = 0,
-                 strict_text: bool = False, device=None):
+                 arabic_in: bool = True, vowelizer: Optional[str] = None,
+                 seed: int = 0, strict_text: bool = False, device=None):
         """strict_text: False (default) drops tokens outside the symbol
         table (trailing punctuation); True raises the reference's KeyError
-        on them."""
+        on them. vowelizer: the default diacritizer of every call
+        ("shakkala", "shakkelha" or None)."""
         self.device = resolve_device(device)
         self.arabic_in = arabic_in
         self.strict_text = strict_text
+        self.default_vowelizer = vowelizer
+        self._vowelizers = {}
+        self._graphs = {}       # see capture_graphs
+        self.graph_replays = 0
         self.phon_to_id = None
         sd = None
         if checkpoint is not None:
-            sd, extras = load_reference_pth(checkpoint)
-            if config is None and extras.get("config"):
-                config = FastPitchConfig.from_reference_net_config(
-                    extras["config"])
-            if "symbols" in extras:
-                self.phon_to_id = {p: i for i, p in
-                                   enumerate(extras["symbols"])}
+            sd, config = self._load_checkpoint(checkpoint, config)
         self.config = config or FastPitchConfig()
         self.model = FastPitch(self.config)
         if sd is None:
@@ -110,9 +165,41 @@ class FastPitchTTS:
             self.model.load_state_dict(to_tensors(sd), strict=True)
         self.model.to(self.device).eval()
 
+    def _load_checkpoint(self, checkpoint, config):
+        """(state dict, config) from a reference `.pth`/`.pt` or from a
+        training checkpoint, whose config holds the reference-style
+        `net_config` the trainer wrote."""
+        path = str(checkpoint)
+        if path.endswith((".pth", ".pt")):
+            sd, extras = load_reference_pth(path)
+            if config is None and extras.get("config"):
+                config = FastPitchConfig.from_reference_net_config(
+                    extras["config"])
+            if "symbols" in extras:
+                self.phon_to_id = {p: i for i, p in
+                                   enumerate(extras["symbols"])}
+            return sd, config
+        state = load_states(path)
+        if config is None:
+            net_config = (state.get("config") or {}).get("net_config")
+            config = (FastPitchConfig.from_reference_net_config(net_config)
+                      if net_config else FastPitchConfig())
+        return state["model"], config
+
     # -- text frontend -------------------------------------------------------
 
-    def tokenize(self, utterance: str) -> np.ndarray:
+    def _vowelizer(self, vowelizer: Optional[str]):
+        """The diacritizer named by the call or the default, loaded once;
+        None when neither names one."""
+        name = vowelizer or self.default_vowelizer
+        if name is None:
+            return None
+        if name not in self._vowelizers:
+            from ..diacritizers import load_vowelizer
+            self._vowelizers[name] = load_vowelizer(name, device=self.device)
+        return self._vowelizers[name]
+
+    def _ids(self, utterance: str) -> np.ndarray:
         to_tokens = (text_frontend.arabic_to_tokens if self.arabic_in
                      else text_frontend.buckwalter_to_tokens)
         ids = text_frontend.tokens_to_ids(
@@ -120,8 +207,27 @@ class FastPitchTTS:
             strict=self.strict_text)
         return np.asarray(ids, np.int64)
 
-    def tokenize_batch(self, batch: List[str]) -> List[np.ndarray]:
-        return [self.tokenize(t) for t in batch]
+    def tokenize(self, utterance: str,
+                 vowelizer: Optional[str] = None) -> np.ndarray:
+        """Token ids of one utterance; with a vowelizer, the utterance is
+        read as Buckwalter or Arabic script, turned into Arabic script and
+        vowelized first (JAX `_vowelize`)."""
+        model = self._vowelizer(vowelizer)
+        if model is not None:
+            utterance = model.predict(
+                text_frontend.buckwalter_to_arabic(utterance))
+        return self._ids(utterance)
+
+    def tokenize_batch(self, batch: List[str],
+                       vowelizer: Optional[str] = None) -> List[np.ndarray]:
+        """tokenize() of each utterance, with one batched diacritizer
+        forward for the whole batch."""
+        model = self._vowelizer(vowelizer)
+        if model is None:
+            return [self._ids(t) for t in batch]
+        vowelized = model.predict(
+            [text_frontend.buckwalter_to_arabic(t) for t in batch])
+        return [self._ids(v) for v in vowelized]
 
     # -- phases --------------------------------------------------------------
 
@@ -139,15 +245,104 @@ class FastPitchTTS:
         enc["dec_len_max"] = enc["dec_lens"].max()
         return enc
 
+    def _decoder_fn(self, regulated, mel_lens):
+        """Decoder + projection in regulated's dtype; padding frames are set
+        to the log-mel silence floor so the vocoder sees silence, not
+        decoder noise."""
+        mel = self.model.decode_regulated(regulated, mel_lens)
+        frame_ids = torch.arange(mel.shape[1], device=mel.device)[None, :,
+                                                                 None]
+        return torch.where(frame_ids < mel_lens[:, None, None], mel,
+                           LOG_MEL_PAD)
+
     def _decode_fn(self, enc_out, durations, pace, *, max_frames):
-        """Decode in enc_out's dtype; padding frames are set to the log-mel
-        silence floor so the vocoder sees silence, not decoder noise."""
-        mel, mel_lens = self.model.decode(enc_out, durations, max_frames,
-                                          pace)
-        frame_ids = torch.arange(max_frames, device=mel.device)[None, :, None]
-        mel = torch.where(frame_ids < mel_lens[:, None, None], mel,
-                          LOG_MEL_PAD)
+        """Length-regulate to max_frames, then decode in enc_out's dtype."""
+        regulated, mel_lens = regulate_len(durations, enc_out, max_frames,
+                                           pace)
+        mel = self._graphed(("decode", tuple(regulated.shape),
+                             regulated.dtype), self._decoder_fn, regulated,
+                            mel_lens)
         return mel, mel_lens
+
+    # -- CUDA graphs of the one-row encode and decoder -----------------------
+
+    def _graphed(self, key, fn, *inputs):
+        """fn(*inputs), replayed from the CUDA graph that capture_graphs()
+        recorded under `key` when there is one (tensor inputs are copied
+        into the graph's own, python scalars filled into its device
+        scalars), else run as it is. A replay returns copies of the
+        graph's outputs, which its next replay overwrites."""
+        entry = self._graphs.get(key)
+        if entry is None:
+            return fn(*inputs)
+        graph, static, out = entry
+        for dst, src in zip(static, inputs):
+            if isinstance(src, torch.Tensor):
+                dst.copy_(src)
+            else:
+                dst.fill_(src)
+        graph.replay()
+        self.graph_replays += 1
+        if isinstance(out, dict):
+            return {k: v if v is None else v.clone() for k, v in out.items()}
+        return out.clone()
+
+    def _capture(self, key, fn, *static, pool):
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):   # library handles, workspaces
+            fn(*static)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool):
+            out = fn(*static)
+        self._graphs[key] = (graph, static, out)
+
+    def capture_graphs(self, dtype: torch.dtype | None = None) -> None:
+        """Record CUDA graphs of the one-row encode at every
+        GRAPH_TEXT_BUCKETS length and of the decoder at every MEL_BUCKETS
+        length in `dtype` (float32 when None; the decode dtype of the
+        caller). Every later one-row encode and decode at those lengths
+        replays them, whatever its text, speed, pitch and speaker; nothing
+        is captured on a request's path, and a longer one runs eagerly.
+        Does nothing off the card.
+
+        The graphs share one memory pool: a graph's intermediates may lie
+        where another's outputs do, which is safe because `_graphed` copies
+        the outputs before the next replay. So a pipeline serves one call
+        at a time (the server runs every synthesis on one worker thread)."""
+        if self.device.type != "cuda":
+            return
+        dev = self.device
+        pool = torch.cuda.graph_pool_handle()
+        dtype = dtype or torch.float32
+        d_model = self.config.d_model
+
+        def scalar(value, kind=torch.float32):
+            return torch.full((), value, dtype=kind, device=dev)
+
+        with _exact_f32():
+            for n in GRAPH_TEXT_BUCKETS:
+                tokens = torch.ones((1, n), dtype=torch.long, device=dev)
+                self._capture(("encode", (1, n)), self._encode_fn, tokens,
+                              scalar(1.0), scalar(0.0),
+                              scalar(0, torch.long), scalar(1.0), pool=pool)
+            for frames in MEL_BUCKETS:
+                self._capture(
+                    ("decode", (1, frames, d_model), dtype),
+                    self._decoder_fn,
+                    torch.zeros((1, frames, d_model), dtype=dtype, device=dev),
+                    torch.full((1,), frames, dtype=torch.int32, device=dev),
+                    pool=pool)
+
+    def _text_length(self, n: int, rows: int) -> int:
+        """The padded token length of a batch of `rows` rows whose longest
+        has n tokens."""
+        if rows == 1 and self.device.type == "cuda":
+            for length in GRAPH_TEXT_BUCKETS:
+                if n <= length:
+                    return length
+        return _round_up(max(n, 1), TEXT_BUCKET)
 
     def _encode_batch(self, ids_list, speaker_id, pitch_mul, pitch_add,
                       pad_to=None, speed=1.0):
@@ -160,12 +355,14 @@ class FastPitchTTS:
         rows = pad_to if pad_to is not None else n_real
         if n_real < rows:
             ids_sorted += [np.zeros(1, np.int64)] * (rows - n_real)
-        tokens = _pad_ids(ids_sorted, _round_up(max(int(lens.max()), 1),
-                                                TEXT_BUCKET))
+        tokens = _pad_ids(ids_sorted,
+                          self._text_length(int(lens.max()), len(ids_sorted)))
         tokens = torch.from_numpy(tokens).to(self.device)
         with _exact_f32():
-            enc = self._encode_fn(tokens, float(pitch_mul), float(pitch_add),
-                                  int(speaker_id), float(speed))
+            enc = self._graphed(("encode", tuple(tokens.shape)),
+                                self._encode_fn, tokens, float(pitch_mul),
+                                float(pitch_add), int(speaker_id),
+                                float(speed))
         return enc, np.argsort(order), n_real
 
     def _infer_batch_mel(self, ids_list, speed, speaker_id, pitch_mul,
@@ -181,11 +378,12 @@ class FastPitchTTS:
     # -- public API ----------------------------------------------------------
 
     def ttmel_batch(self, batch: List[str], speed: float = 1.0,
-                    speaker_id: int = 0, pitch_mul: float = 1.0,
-                    pitch_add: float = 0.0, pad_to=None):
+                    speaker_id: int = 0, vowelizer: Optional[str] = None,
+                    pitch_mul: float = 1.0, pitch_add: float = 0.0,
+                    pad_to=None):
         mel, mel_lens, inverse, _ = self._infer_batch_mel(
-            self.tokenize_batch(batch), speed, speaker_id, pitch_mul,
-            pitch_add, pad_to)
+            self.tokenize_batch(batch, vowelizer), speed, speaker_id,
+            pitch_mul, pitch_add, pad_to)
         mel = mel.float().cpu().numpy()
         mel_lens = mel_lens.cpu().numpy()
         return [mel[i, : mel_lens[i]].T for i in inverse]  # [80, T] each
@@ -195,9 +393,10 @@ class FastPitchTTS:
 
     def ttmel(self, text_input: Union[str, List[str]], speed: float = 1.0,
               speaker_id: int = 0, batch_size: int = 1,
-              pitch_mul: float = 1.0, pitch_add: float = 0.0):
-        kw = dict(speed=speed, speaker_id=speaker_id, pitch_mul=pitch_mul,
-                  pitch_add=pitch_add)
+              vowelizer: Optional[str] = None, pitch_mul: float = 1.0,
+              pitch_add: float = 0.0):
+        kw = dict(speed=speed, speaker_id=speaker_id, vowelizer=vowelizer,
+                  pitch_mul=pitch_mul, pitch_add=pitch_add)
         if isinstance(text_input, str):
             return self.ttmel_single(text_input, **kw)
         order = sorted(range(len(text_input)),
@@ -218,20 +417,26 @@ class FastPitch2Wave:
     FastPitch, HiFi-GAN and the spectral denoiser."""
 
     def __init__(self, model_sd_path=None, vocoder_sd=None,
-                 vocoder_config=None, arabic_in: bool = True, config=None,
-                 seed: int = 0, compute_dtype: torch.dtype | None = None,
+                 vocoder_config=None, vowelizer: Optional[str] = None,
+                 arabic_in: bool = True, config=None, seed: int = 0,
+                 compute_dtype: torch.dtype | None = None,
                  strict_text: bool = False, device=None):
         """compute_dtype: torch.bfloat16 runs the decoder and the vocoder in
         bf16 (weights stay f32 in memory and are cast per call); encode and
         the denoiser stay f32. None = f32 throughout.
 
         vocoder_sd: a reference HiFi-GAN `.pth` (weight norm is folded at
-        load); None gives seeded random weights (seed + 1)."""
+        load); None takes the basic config's vocoder when an acoustic
+        checkpoint is given and that file exists, else seeded random
+        weights (seed + 1)."""
         self.compute_dtype = compute_dtype
         self.model = FastPitchTTS(model_sd_path, config=config,
-                                  arabic_in=arabic_in, seed=seed,
-                                  strict_text=strict_text, device=device)
+                                  arabic_in=arabic_in, vowelizer=vowelizer,
+                                  seed=seed, strict_text=strict_text,
+                                  device=device)
         self.device = self.model.device
+        vocoder_sd, vocoder_config = _default_vocoder_paths(
+            vocoder_sd, vocoder_config, enabled=model_sd_path is not None)
         self.vocoder_config = (HiFiGANConfig.from_json(vocoder_config)
                                if vocoder_config is not None
                                else HiFiGANConfig())
@@ -268,18 +473,15 @@ class FastPitch2Wave:
         if use_denoiser:
             wave = denoiser_mod.denoise(wave, self.bias_spec,
                                         denoise_strength)
-        if out_int16 == "mulaw":
-            wave = mulaw_encode(wave)
-        elif out_int16:
-            wave = (torch.clamp(wave, -1.0, 1.0) * 32767.0).to(torch.int16)
         mel = mel.float() if return_mel else None
-        return wave, mel, mel_lens
+        return _output(wave, out_int16), mel, mel_lens
 
-    def _dispatch_encode(self, batch, speed, speaker_id, pitch_mul,
-                         pitch_add, pad_to):
+    def _dispatch_encode(self, batch, speed, speaker_id, vowelizer,
+                         pitch_mul, pitch_add, pad_to):
         m = self.model
-        return m._encode_batch(m.tokenize_batch(batch), speaker_id,
-                               pitch_mul, pitch_add, pad_to, speed)
+        return m._encode_batch(m.tokenize_batch(batch, vowelizer),
+                               speaker_id, pitch_mul, pitch_add, pad_to,
+                               speed)
 
     def _dispatch_wave(self, enc_handles, speed, denoise, return_mel,
                        out_int16=False, dec_len_max=None):
@@ -320,11 +522,11 @@ class FastPitch2Wave:
 
     def tts_batch(self, batch: List[str], speed: float = 1.0,
                   speaker_id: int = 0, denoise: float = 0.0,
-                  pitch_mul: float = 1.0, pitch_add: float = 0.0,
-                  return_mel: bool = False, pad_to=None,
-                  out_int16: bool = False):
-        enc = self._dispatch_encode(batch, speed, speaker_id, pitch_mul,
-                                    pitch_add, pad_to)
+                  vowelizer: Optional[str] = None, pitch_mul: float = 1.0,
+                  pitch_add: float = 0.0, return_mel: bool = False,
+                  pad_to=None, out_int16: bool = False):
+        enc = self._dispatch_encode(batch, speed, speaker_id, vowelizer,
+                                    pitch_mul, pitch_add, pad_to)
         handles = self._dispatch_wave(enc, speed, denoise, return_mel,
                                       out_int16)
         return self._collect_batch(handles, return_mel)
@@ -335,12 +537,93 @@ class FastPitch2Wave:
             return out[0][0], out[1][0]
         return out[0]
 
+    # -- streaming synthesis ---------------------------------------------
+
+    def _stream_chunk_fn(self, mel, start: int, denoise_strength: float, *,
+                         window: int, use_denoiser: bool, out_int16):
+        """Vocode (+ denoise in f32) `window` frames of the decoded mel
+        from frame `start`, with the generator tts() uses."""
+        piece = mel[:, start: start + window].contiguous()
+        wave = self.vocoder(piece).float()
+        if use_denoiser:
+            wave = denoiser_mod.denoise(wave, self.bias_spec,
+                                        denoise_strength)
+        return _output(wave, out_int16)
+
+    def stream(self, utterance: str, chunk_frames: int = 128,
+               overlap: int = 16, speed: float = 1.0, denoise: float = 0.005,
+               speaker_id: int = 0, vowelizer: Optional[str] = None,
+               pitch_mul: float = 1.0, pitch_add: float = 0.0,
+               out_int16: bool = False):
+        """Streaming synthesis: yields numpy waveform chunks of
+        `chunk_frames * hop` samples (the last one shorter) as each is
+        vocoded, so the first audio waits for one window, not the whole
+        utterance (JAX `stream`).
+
+        The chunks concatenate to `tts_single`'s wave to float tolerance:
+        the whole mel is decoded once in the compute dtype, and each window
+        of `chunk_frames + 2 * overlap` frames carries `overlap` >= the
+        HiFi-GAN receptive field (~13 frames) + the denoiser's STFT context
+        (4 frames); its core is cut at the window's own offset. Window
+        starts are whole frames, so the denoiser's STFT grid lines up with
+        the full wave's.
+
+        The first window is vocoded from a mel decoded at
+        STREAM_SPEC_FRAMES' bucket before the utterance's length reaches
+        the host, so its device work is queued while the host waits. The
+        decoder masks attention at the true length, so that mel is the mel
+        whenever the length plus a window fits the bucket; otherwise the
+        mel is decoded again at the length's own bucket.
+
+        The encode and decode are tts_single's, graphs included."""
+        m = self.model
+        window = chunk_frames + 2 * overlap
+        chunk = dict(window=window, use_denoiser=denoise > 0,
+                     out_int16=out_int16)
+        bucket0 = _pick_mel_bucket(max(window, STREAM_SPEC_FRAMES))
+
+        def decode(enc_out, durations, frames):
+            return m._decode_fn(enc_out, durations, float(speed),
+                                max_frames=frames)[0]
+
+        enc = m._encode_batch([m.tokenize(utterance, vowelizer)], speaker_id,
+                              pitch_mul, pitch_add, speed=speed)[0]
+        with _exact_f32():
+            enc_out, durations = enc["enc_out"], enc["dur_pred"]
+            if self.compute_dtype is not None:  # the decode dtype of tts()
+                enc_out = enc_out.to(self.compute_dtype)
+            mel = decode(enc_out, durations, bucket0)
+            wave0 = self._stream_chunk_fn(mel, 0, float(denoise), **chunk)
+        dec_len = int(enc["dec_len_max"])      # waits for the host copy
+        speculation_ok = dec_len + window <= bucket0
+        if speculation_ok:
+            bucket = bucket0
+        else:
+            bucket = _pick_mel_bucket(max(dec_len, window))
+            with _exact_f32():
+                mel = decode(enc_out, durations, bucket)
+        hop = self.hop_length
+        for i in range(max(-(-dec_len // chunk_frames), 1)):
+            core_len = min(chunk_frames, dec_len - i * chunk_frames)
+            if i == 0 and speculation_ok:
+                yield wave0[0, : core_len * hop].cpu().numpy()
+                continue
+            start = int(np.clip(i * chunk_frames - overlap, 0,
+                                bucket - window))
+            core_off = i * chunk_frames - start
+            with _exact_f32():
+                wave = self._stream_chunk_fn(mel, start, float(denoise),
+                                             **chunk)
+            yield wave[0, core_off * hop: (core_off + core_len) * hop].cpu(
+            ).numpy()
+
     def warmup(self, batch_sizes=(2,), text_buckets=(16, 32),
                mel_buckets=(256, 512, 1024), denoise: float = 0.005,
                return_mel: bool = False, out_int16: bool = False):
         """Run each (batch size, text bucket, mel bucket) once on zero
         tokens, so the first request pays no kernel build or cuDNN
-        algorithm search."""
+        algorithm search; then capture the one-row encode and decoder
+        graphs (FastPitchTTS.capture_graphs) in the decode dtype."""
         m = self.model
         for bs in batch_sizes:
             for tb in text_buckets:
@@ -354,13 +637,15 @@ class FastPitch2Wave:
                                       use_denoiser=denoise > 0,
                                       return_mel=return_mel,
                                       out_int16=out_int16)
+        m.capture_graphs(self.compute_dtype)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def tts(self, text_input: Union[str, List[str]], speed: float = 1.0,
             denoise: float = 0.005, speaker_id: int = 0, batch_size: int = 2,
-            pitch_mul: float = 1.0, pitch_add: float = 0.0,
-            return_mel: bool = False, out_int16: bool = False):
+            vowelizer: Optional[str] = None, pitch_mul: float = 1.0,
+            pitch_add: float = 0.0, return_mel: bool = False,
+            out_int16: bool = False):
         """Synthesize speech (API of reference `FastPitch2Wave.tts`,
         networks.py:352-435).
 
@@ -369,8 +654,9 @@ class FastPitch2Wave:
         G.711-style codes, companded on the device; decode with
         `audio.mulaw_decode`)."""
         kw = dict(speed=speed, denoise=denoise, speaker_id=speaker_id,
-                  pitch_mul=pitch_mul, pitch_add=pitch_add,
-                  return_mel=return_mel, out_int16=out_int16)
+                  vowelizer=vowelizer, pitch_mul=pitch_mul,
+                  pitch_add=pitch_add, return_mel=return_mel,
+                  out_int16=out_int16)
         if isinstance(text_input, str):
             return self.tts_single(text_input, **kw)
         # global length sort before batching, so batches are homogeneous in
@@ -382,8 +668,8 @@ class FastPitch2Wave:
         # every encode is queued before the one host fetch of the bucket
         # scalars; every wave is queued before the first copy back
         encs = [self._dispatch_encode([text_input[i] for i in idxs], speed,
-                                      speaker_id, pitch_mul, pitch_add,
-                                      pad_to=bs)
+                                      speaker_id, vowelizer, pitch_mul,
+                                      pitch_add, pad_to=bs)
                 for idxs in batches]
         maxes = torch.stack([e[0]["dec_len_max"] for e in encs]).tolist()
         handles = [self._dispatch_wave(e, speed, denoise, return_mel,

@@ -144,6 +144,45 @@ def hifigan_params_to_torch(variables: dict, config) -> dict:
     return sd
 
 
+def _bilstm_t(sd, prefix, p):
+    """One bidirectional layer ({'fwd', 'bwd'} of wi [C, 4H], wh [H, 4H],
+    bi, bh) -> torch `nn.LSTM` keys, `_reverse` for the backward
+    direction."""
+    for direction, suffix in (("fwd", ""), ("bwd", "_reverse")):
+        q = p[direction]
+        sd[f"{prefix}.weight_ih_l0{suffix}"] = np.ascontiguousarray(
+            _np(q["wi"]).T)
+        sd[f"{prefix}.weight_hh_l0{suffix}"] = np.ascontiguousarray(
+            _np(q["wh"]).T)
+        sd[f"{prefix}.bias_ih_l0{suffix}"] = _np(q["bi"])
+        sd[f"{prefix}.bias_hh_l0{suffix}"] = _np(q["bh"])
+
+
+def diacritizer_params_to_torch(params: dict) -> dict:
+    """The JAX diacritizers' numpy parameter dicts -> the reference `.pth`
+    layout (the inverse of the JAX package's `_import_bilstm` and
+    `_import_dense`). Shakkala: `emb`, `lstm0-2`, `bn0`, `dense0` ->
+    `emb_input.weight`, `lstmN.weight_ih_l0{,_reverse}`...,
+    `bn0.{weight,bias,running_mean,running_var}`, `dense0.{weight,bias}`.
+    Shakkelha: `emb`, `lstm0-1`, `dense0-2` -> `emb0.weight`, ..."""
+    sd = {}
+    shakkala = "bn0" in params
+    sd["emb_input.weight" if shakkala else "emb0.weight"] = _np(
+        params["emb"])
+    for name, p in params.items():
+        if name.startswith("lstm"):
+            _bilstm_t(sd, name, p)
+        elif name.startswith("dense"):
+            sd[f"{name}.weight"] = np.ascontiguousarray(_np(p["w"]).T)
+            sd[f"{name}.bias"] = _np(p["b"])
+        elif name == "bn0":
+            sd["bn0.weight"] = _np(p["scale"])
+            sd["bn0.bias"] = _np(p["bias"])
+            sd["bn0.running_mean"] = _np(p["mean"])
+            sd["bn0.running_var"] = _np(p["var"])
+    return sd
+
+
 def fold_weight_norm(sd: dict) -> dict:
     """Fold weight-norm pairs into plain weights, w = g * v / ||v||: both
     the legacy `weight_g`/`weight_v` keys and the modern

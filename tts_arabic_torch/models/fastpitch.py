@@ -254,8 +254,11 @@ class FastPitch(nn.Module):
     def _speaker_vector(self, batch_size: int, speaker: int, dtype):
         if self.config.n_speakers <= 1:
             return 0.0
-        sid = torch.full((batch_size,), int(speaker), dtype=torch.long,
-                         device=self.proj.weight.device)
+        if isinstance(speaker, torch.Tensor):   # a device scalar
+            sid = speaker.to(torch.long).expand(batch_size)
+        else:
+            sid = torch.full((batch_size,), int(speaker), dtype=torch.long,
+                             device=self.proj.weight.device)
         emb = nn.functional.embedding(sid, self.speaker_emb.weight)
         return (emb[:, None, :] * self.config.speaker_emb_weight).to(dtype)
 
@@ -301,8 +304,14 @@ class FastPitch(nn.Module):
         dtype. Returns (mel [B, max_frames, n_mel], dec_lens [B])."""
         regulated, dec_lens = regulate_len(durations, enc_out, max_frames,
                                            pace)
+        return self.decode_regulated(regulated, dec_lens), dec_lens
+
+    def decode_regulated(self, regulated: torch.Tensor,
+                         dec_lens: torch.Tensor) -> torch.Tensor:
+        """Decoder FFT + mel projection of length-regulated states
+        [B, frames, d_model] with their lengths dec_lens [B]."""
         dec_out, _ = self.decoder(regulated, seq_lens=dec_lens)
-        return linear(dec_out, self.proj), dec_lens
+        return linear(dec_out, self.proj)
 
     def infer(self, tokens: torch.Tensor, *, speaker: int = 0,
               pace: float = 1.0, max_frames: int = 2048,

@@ -42,6 +42,7 @@ def sinusoidal_positions(n_pos: int, dim: int) -> np.ndarray:
                           axis=1).astype(np.float32)
 
 
+
 def dropout(x: torch.Tensor, rate: float,
             gen: torch.Generator | None) -> torch.Tensor:
     """flax's `nn.Dropout`: keep each value with probability 1 - rate and
@@ -156,9 +157,25 @@ class PositionalEmbedding(nn.Module):
 
     def __init__(self, d_model: int):
         super().__init__()
+        self.d_model = d_model
         inv_freq = 1.0 / (10000.0 ** (np.arange(0.0, d_model, 2.0) / d_model))
         self.register_buffer(
             "inv_freq", torch.from_numpy(inv_freq.astype(np.float32)))
+        # (device, dtype) -> tables on that device, the last the longest
+        self._tables = {}
+
+    def table(self, n_pos: int, device, dtype) -> torch.Tensor:
+        """`sinusoidal_positions(n_pos, d_model)` on the device in `dtype`:
+        a view of a table made once per doubling of the length, since a
+        copy from pageable host memory first waits for everything queued on
+        the device. Shorter tables are kept: a CUDA graph captured on one
+        reads its memory. Callers must not write to the view."""
+        tables = self._tables.setdefault((torch.device(device), dtype), [])
+        if not tables or tables[-1].shape[0] < n_pos:
+            n = max(n_pos, 2 * tables[-1].shape[0] if tables else 1024)
+            tables.append(torch.from_numpy(
+                sinusoidal_positions(n, self.d_model)).to(device, dtype))
+        return tables[-1][:n_pos]
 
 
 class FFTransformer(nn.Module):
@@ -171,7 +188,6 @@ class FFTransformer(nn.Module):
                  dropout: float = 0.0, dropatt: float = 0.0,
                  dropemb: float = 0.0):
         super().__init__()
-        self.d_model = d_model
         self.padding_idx = padding_idx
         self.dropemb = dropemb
         if embed_input:
@@ -192,8 +208,7 @@ class FFTransformer(nn.Module):
         else:
             x = inputs
             mask = sequence_mask(seq_lens, x.shape[1])
-        pos = torch.from_numpy(sinusoidal_positions(x.shape[1], self.d_model))
-        pos = pos.to(x.device, x.dtype)
+        pos = self.pos_emb.table(x.shape[1], x.device, x.dtype)
         x = x + pos[None] * mask[..., None].to(x.dtype) + conditioning
         x = dropout(x, self.dropemb, gen)
         for block in self.layers:

@@ -6,8 +6,11 @@ The port reads YAML itself, since the card's installation has no PyYAML.
 It reads the flat subset that `configs/*.yaml` use, one `key: value` per
 line: plain scalars resolved as PyYAML's safe loader resolves them (YAML
 1.1 ints, floats, booleans and nulls, else strings), single- and
-double-quoted strings, inline lists of those, and `#` comments. Anything
-else (indented blocks, nested maps, anchors) raises ValueError.
+double-quoted strings, inline lists of those, and `#` comments. It also
+reads a top-level list of such flat mappings (`- key: value` opening each
+item, its other keys indented under the first), the shape of the server's
+model registry `app_models.yaml`. Anything else (nested maps, lists of
+scalars, anchors) raises ValueError.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ _INT = re.compile(r"[-+]?(?:0|[1-9][0-9_]*)$")
 _FLOAT = re.compile(r"[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?$"
                     r"|\.[0-9_]+(?:[eE][-+][0-9]+)?$")
 _KEY = re.compile(r"([A-Za-z_][A-Za-z0-9_]*)\s*:(?:\s+|$)(.*)$")
+_ITEM = re.compile(r"-(\s+)(\S.*)$")
 
 
 class DictConfig(dict):
@@ -124,28 +128,48 @@ def _value(text: str, line: str):
     return value
 
 
-def parse_yaml(text: str) -> dict:
-    """The flat YAML subset above -> dict."""
-    out = {}
+def parse_yaml(text: str):
+    """The YAML subset above -> a dict, or a list of dicts."""
+    out, items, indent = {}, None, 0
     for line in text.splitlines():
         stripped = line.strip()
         if not stripped or stripped.startswith("#"):
             continue
-        m = _KEY.match(line)
+        item = _ITEM.match(line)
+        if item is not None and not out:    # a new mapping of the list
+            items = [] if items is None else items
+            out_item = {}
+            items.append(out_item)
+            indent = 1 + len(item.group(1))
+            target, body = out_item, item.group(2)
+        elif items is not None:             # a key of the current mapping
+            if len(line) - len(line.lstrip(" ")) != indent:
+                raise ValueError(f"unsupported YAML line in a list of "
+                                 f"mappings: {line!r}")
+            target, body = items[-1], line[indent:]
+        else:
+            target, body = out, line
+        m = _KEY.match(body)
         if m is None:
             raise ValueError(f"unsupported YAML line (the port reads flat "
                              f"`key: value` lines only): {line!r}")
-        out[m.group(1)] = _value(m.group(2), line)
-    return out
+        target[m.group(1)] = _value(m.group(2), line)
+    return out if items is None else items
 
 
 def load_yaml(path) -> DictConfig:
     return DictConfig(parse_yaml(pathlib.Path(path).read_text()))
 
 
+def get_basic_config(basic_path=None) -> DictConfig:
+    """configs/basic.yaml (or the given file), as the JAX package's
+    `get_basic_config` reads it."""
+    return load_yaml(basic_path or DEFAULT_BASIC_CONFIG)
+
+
 def get_config(experiment_path) -> DictConfig:
     """basic.yaml overlaid with an experiment YAML (flat update, as the
     reference `utils/__init__.py:35-40` does)."""
-    cfg = load_yaml(DEFAULT_BASIC_CONFIG)
+    cfg = get_basic_config()
     cfg.update(load_yaml(experiment_path))
     return cfg
