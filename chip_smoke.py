@@ -1,9 +1,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (written for an
 H100): builds the CUDA kernels from `tts_arabic_torch/csrc`, holds every
 kernel variant against its plain PyTorch version on the card, drives
-`FastPitch2Wave.tts()`, FastPitch training (`apps.train_fastpitch`) and
-the serving surface (`stream()`, long-form, the vowelizers, the HTTP
-server and the inference CLI) at full width, and checks what comes out.
+`FastPitch2Wave.tts()`, FastPitch training (`apps.train_fastpitch`), the
+serving surface (`stream()`, long-form, the vowelizers, the HTTP server
+and the inference CLI) and `Tacotron2Wave` (tts(), its decode, stream(),
+the CLI and the server) at full width, and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -79,12 +80,14 @@ Phases, one line each (and a table for the kernel checks):
    (counters set to 0 just before the stream, read just after), every
    ResBlock call of a stream and of the clamped last window against the
    plain version, the speculation fallback (STREAM_SPEC_FRAMES = 1), int16
-   and mu-law chunks, the host cost of the per-call weight casts, time to
+   and mu-law chunks, the host cost of the per-call weight lookups, time to
    the first chunk against the whole `tts_single` (3 runs each, host
    clock; first < 0.75 x whole with the graphs on both sides; the same
-   pair eagerly, printed beside it), then one request for each of the 16
-   prompts at mixed speeds and pitches (first chunk and whole call, each
-   stream against the eager `tts_single` of its text and rate), and
+   pair with the tokenizer's word cache emptied before each call, and
+   eagerly, printed beside it), then one request for each of the 16
+   prompts at mixed speeds and pitches, its words met nowhere before
+   (first chunk and whole call, each stream against the eager
+   `tts_single` of its text and rate), and
    `tts_long` of the 16 prompts; then in f32, max |stream - tts_single|
    <= 1e-4 with and without the speculation, and the graphed
    `tts_single` against the eager
@@ -99,11 +102,39 @@ Phases, one line each (and a table for the kernel checks):
    the first byte of each; then the inference CLI on
    the 16 prompts from a `states.ckpt` into a temp dir under build/,
    within 1 LSB of the served model's `tts()`
+12. Tacotron2: full-width Tacotron2 (Tacotron2Config(): 512-wide encoder,
+   1024-wide attention and decoder LSTMs, k31 location conv, postnet 5 x
+   512) and HiFi-GAN V1, both f32 (TF32 off), seeded random weights (seed
+   0), the 16 prompts, batch 8, decoder_max_step 3000 (the random gate
+   never fires, so both batches decode 3000 steps), denoise 0.005:
+   `warmup()` capturing the decode-block graphs of the two batches'
+   shapes (seconds, memory); three timed tts() calls, the launch counters
+   set to 0 just before the third and read just after (27 wide + 3
+   narrow per generator call, MAS 0), each prompt's frames; the decode
+   alone of the second batch, graphed (3000 steps) and eager (300 steps),
+   wall and device us a step against the step's bound (the decoder's f32
+   weights read once at the memory rate), and each under torch.profiler
+   (idle share, device time and ops a step, top ops); a DECODE_BLOCK
+   sweep (4-64 steps a block, graphed, 600 steps); that batch again with
+   the gate set from its capped decode's logits so its rows stop at
+   distinct steps (graphed = eager, lengths as the logits predict); one
+   tts() under torch.profiler (the ResBlock kernels' share of device
+   time and wall); the fused device path against the host path on the
+   first batch (within 1e-4), the kernels against the plain ResBlocks on
+   those mels (SNR > 40 dB); stream() of the shortest prompt against
+   tts_single(postprocess_mel=False) (within 1e-4) with the time to its
+   first chunk against the whole call (min of 3, graphs on both sides)
+13. Tacotron2 apps: the inference CLI with --model tacotron2 on 8 prompts
+   from a reference `.pth` (f32, eager decode) within 1 LSB of the same
+   weights' tts(speed=1.0); the server with a one-entry `tacotron2`
+   registry after its warmup(): /api/tts, /api/tts/stream equal to the
+   model's stream() (replaying the warmed graph), and a 400 for rate 1.25
 
 Then nvidia-smi's line again, the kernels' JSON record (for each ResBlock
 variant its ms, plain_ms and bound_ms summed over the serving path's bf16
 launches, as timed in phase 3; for MAS the same sums over the training
-run's launches, as timed in phase 6), and last the result line. Any
+run's launches, as timed in phase 6; `tacotron2_launches`, each kernel's
+launches in phase 12's counted tts()), and last the result line. Any
 failure raises and the exit code is not 0; without a CUDA device the
 script exits 1 before printing any result.
 """
@@ -992,25 +1023,25 @@ def phase_stream_kernels() -> dict:
 def weight_prep_ms(pipe, reps: int = 20) -> float:
     """Host ms of the per-call weight preparation of one window's
     ResBlocks, as `ResBlock1.forward` and `ops.resblock.resblock1` do it
-    (stacks, `kernel_weights`' permute and cast, the bias casts), ending in
-    a synchronize; the mean of `reps`."""
+    (the stacks and their kernel layout, kept between calls, looked up;
+    the bias casts), ending in a synchronize; the mean of `reps`."""
     from tts_arabic_torch.ops import resblock as rb
     dtype = pipe.compute_dtype or torch.float32
 
     def prep():
         for blk in pipe.vocoder.resblocks:
-            for convs in (blk.convs1, blk.convs2):
-                rb.kernel_weights(torch.stack([c.weight for c in convs]),
-                                  dtype)
-                torch.stack([c.bias for c in convs]).contiguous().to(
-                    torch.float32)
+            w1, b1, w2, b2 = blk._stacks()
+            for w, b in ((w1, b1), (w2, b2)):
+                rb.kernel_weights(w, dtype)
+                b.contiguous().to(torch.float32)
 
-    prep()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
+    with torch.no_grad():
         prep()
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            prep()
+        torch.cuda.synchronize()
     return (time.perf_counter() - t0) / reps * 1e3
 
 
@@ -1051,18 +1082,25 @@ def eager(pipe):
     return mock.patch.dict(pipe.model._graphs, clear=True)
 
 
-def first_and_whole(pipe, text: str, kw: dict) -> tuple[list, list]:
+def first_and_whole(pipe, text: str, kw: dict,
+                    fresh_words: bool = False) -> tuple[list, list]:
     """3 runs each, host clock: seconds to the first chunk of
     stream(text) (the rest drained after the clock stops) and of the whole
-    tts_single(text)."""
+    tts_single(text); with `fresh_words`, the tokenizer's word cache is
+    emptied before each call."""
+    from tts_arabic_torch.text import phonetizer
     firsts, fulls = [], []
     for _ in range(3):
+        if fresh_words:
+            phonetizer.clear_word_cache()
         t0 = time.perf_counter()
         gen = pipe.stream(text, **kw)
         next(gen)
         firsts.append(time.perf_counter() - t0)
         for _ in gen:
             pass
+        if fresh_words:
+            phonetizer.clear_word_cache()
         t0 = time.perf_counter()
         pipe.tts_single(text, denoise=kw["denoise"])
         fulls.append(time.perf_counter() - t0)
@@ -1072,19 +1110,24 @@ def first_and_whole(pipe, text: str, kw: dict) -> tuple[list, list]:
 def mixed_requests(pipe, prompts: list[str], kw: dict) -> dict:
     """One request for each prompt, at the MIX_SPEEDS and MIX_PITCHES in
     turn: the seconds to its stream's first chunk and to its whole
-    tts_single, both replaying the graphs; each stream must hold the eager
-    tts_single of its text and rate at STREAM_BF16_SNR."""
+    tts_single, both replaying the graphs, each with the tokenizer's word
+    cache emptied first (its text's words met nowhere before); each stream
+    must hold the eager tts_single of its text and rate at
+    STREAM_BF16_SNR."""
     from tts_arabic_torch.infer import pipeline as pl
+    from tts_arabic_torch.text import phonetizer
     out = dict(first=[], whole=[], snr=[], buckets=[], chunks=0, audio_s=0.0)
     for i, text in enumerate(prompts):
         rate = dict(speed=MIX_SPEEDS[i % len(MIX_SPEEDS)],
                     pitch_mul=MIX_PITCHES[i % len(MIX_PITCHES)])
         replays = pipe.model.graph_replays
+        phonetizer.clear_word_cache()
         t0 = time.perf_counter()
         gen = pipe.stream(text, **rate, **kw)
         chunks = [next(gen)]
         out["first"].append(time.perf_counter() - t0)
         chunks += list(gen)
+        phonetizer.clear_word_cache()
         t0 = time.perf_counter()
         pipe.tts_single(text, denoise=kw["denoise"], **rate)
         out["whole"].append(time.perf_counter() - t0)
@@ -1215,6 +1258,8 @@ def phase_stream(smi: str) -> dict:
 
     prep_ms = weight_prep_ms(pipe)
     firsts, fulls = first_and_whole(pipe, text, kw)
+    fresh_firsts, fresh_fulls = first_and_whole(pipe, text, kw,
+                                                fresh_words=True)
     with eager(pipe):
         eager_firsts, eager_fulls = first_and_whole(pipe, text, kw)
     first_s, full_s = min(firsts), min(fulls)
@@ -1254,7 +1299,11 @@ def phase_stream(smi: str) -> dict:
         f"{first_s * 1e3:.2f} ms, median {np.median(firsts) * 1e3:.2f} ms | "
         f"whole tts_single min {full_s * 1e3:.2f} ms, median "
         f"{np.median(fulls) * 1e3:.2f} ms | first / whole "
-        f"{first_s / full_s:.3f} (< {FIRST_CHUNK_SHARE}) | eager on both "
+        f"{first_s / full_s:.3f} (< {FIRST_CHUNK_SHARE}) | the same with "
+        f"the word cache emptied before each call: first chunk min "
+        f"{min(fresh_firsts) * 1e3:.2f} ms, whole min "
+        f"{min(fresh_fulls) * 1e3:.2f} ms, first / whole "
+        f"{min(fresh_firsts) / min(fresh_fulls):.3f} | eager on both "
         f"sides: first chunk min {min(eager_firsts) * 1e3:.2f} ms, median "
         f"{np.median(eager_firsts) * 1e3:.2f} ms, whole min "
         f"{min(eager_fulls) * 1e3:.2f} ms, median "
@@ -1265,7 +1314,8 @@ def phase_stream(smi: str) -> dict:
         f"{sum(len(w) for w in waves)} + {len(waves) - 1} pauses of {pause} "
         f"| {smi}")
     log(f"[9 stream mix] {len(prompts)} requests, one per prompt, each a "
-        f"text first met here, speeds {MIX_SPEEDS} and pitch_mul "
+        f"text first met here (the word cache emptied before each call), "
+        f"speeds {MIX_SPEEDS} and pitch_mul "
         f"{MIX_PITCHES} in turn, graphs: first chunk min "
         f"{min(mix['first']) * 1e3:.2f} ms, median "
         f"{np.median(mix['first']) * 1e3:.2f} ms, max "
@@ -1506,6 +1556,427 @@ def phase_apps(smi: str, tmp: pathlib.Path) -> None:
     torch.cuda.empty_cache()
 
 
+# ---- the Tacotron2 slice -----------------------------------------------------
+
+def t2_pipe(**kw):
+    """Full-width Tacotron2 (Tacotron2Config()) and HiFi-GAN V1, seeded
+    random weights from seed 0, f32 decode and vocoder (the JAX CLI's
+    Tacotron2), on the card."""
+    from tts_arabic_torch.infer import Tacotron2Wave
+    return Tacotron2Wave(seed=0, arabic_in=False, device="cuda", **kw)
+
+
+def t2_batches(pipe, prompts: list[str]) -> list[tuple]:
+    """tts()'s batches of the prompts (the global length sort, then
+    BATCH rows each): (padded ids, sorted token lens, speakers) each."""
+    m = pipe.model
+    order = sorted(range(len(prompts)), key=lambda i: -len(prompts[i]))
+    out = []
+    for k in range(0, len(order), BATCH):
+        toks = m.tokenize_batch([prompts[i] for i in order[k: k + BATCH]])
+        padded, lens, spk, _, _ = m._sorted_batch(toks, 0, BATCH)
+        out.append((padded, lens, spk))
+    return out
+
+
+def t2_bound_us(pipe, batch: tuple) -> tuple[float, float, int]:
+    """Least device time (us) of one decoder step at this batch in f32:
+    the bytes of the decoder's weights read once, the step's memory and
+    attention inputs read once and its state written once, at the memory
+    rate; and the step's matmul FLOPs at the f32 peak. -> (bytes bound,
+    operations bound, weight bytes)."""
+    d = pipe.model.model.decoder
+    n_w = sum(p.numel() for n, p in d.named_parameters()
+              if "memory_layer" not in n)
+    c = pipe.model.config
+    B, T = batch[0].shape
+    act = B * T * (c.memory_dim + c.attention_hidden_dim) + B * (
+        4 * c.decoder_rnn_dim + 2 * T + c.memory_dim + c.n_mels)
+    nbytes = 4 * (n_w + act)
+    flops = 2 * B * n_w + 2 * B * T * (
+        c.attention_location_n_filters * (
+            2 * c.attention_location_kernel_size + c.attention_hidden_dim)
+        + c.attention_hidden_dim + c.memory_dim)
+    return (nbytes / PEAK_BYTES * 1e6, flops / PEAK_FLOPS[torch.float32]
+            * 1e6, 4 * n_w)
+
+
+def t2_decode_ms(pipe, batch: tuple, reps: int = 2) -> tuple[float, float]:
+    """One decode of the batch at the pipeline's cap (replaying its graph
+    when one is captured): (wall ms on the host clock, device ms between
+    CUDA events), the min of `reps`."""
+    walls, devs = [], []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        pipe.model._infer(*batch)
+        end.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        devs.append(start.elapsed_time(end))
+    return min(walls), min(devs)
+
+
+def _t2_ragged_gate(logits: np.ndarray, cap: int):
+    """From a capped decode's gate logits [B, S] at bias 0 (the gate does
+    not feed back into the decode): the scale and bias of a gate under
+    which the rows stop at distinct steps before the cap, each crossing
+    more than 1e-2 from the threshold; the random decode settles with its
+    logits falling, so the weight is negated. -> (scale, bias, stops)."""
+    best = None
+    for scale in (-100.0, 100.0):
+        z = scale * logits
+        values = np.unique(np.round(z, 3))
+        for theta in (values[1:] + values[:-1]) / 2:
+            stops = []
+            for row in z:
+                hit = np.flatnonzero(row > theta)
+                stops.append(int(hit[0]) if hit.size else cap)
+            margin = min(np.abs(row[: s + 1] - theta).min()
+                         for row, s in zip(z, stops))
+            if max(stops) < cap and margin > 1e-2:
+                score = (len(set(stops)), min(stops), max(stops))
+                if best is None or score > best[0]:
+                    best = (score, scale, float(-theta), stops)
+    if best is None or best[0][0] < 2:
+        raise AssertionError("no gate stops the rows ragged before the cap")
+    return best[1:]
+
+
+def t2_profile_decode(pipe, batch: tuple, steps: int) -> dict:
+    """One decode of the batch under torch.profiler: the device's idle
+    share of its wall, device ms per step, and the top device ops."""
+    got = profiled(lambda: pipe.model._infer(*batch))
+    if got is None:
+        return {}
+    wall, by_name, busy, n_ops = got
+    return dict(wall_ms=wall * 1e3, busy_ms=busy, idle=1 - busy / 1e3 / wall,
+                dev_us_step=sum(by_name.values()) / steps * 1e3,
+                ops_step=n_ops / steps, top=by_name.most_common(8))
+
+
+def phase_tacotron2(smi: str) -> dict:
+    """Tacotron2Wave.tts() of the 16 prompts at full width in f32, batch 8,
+    with the decode-block graphs of its two batches captured by warmup():
+    three timed calls (the launch counters set to 0 just before the last
+    and read just after), the decode alone per step against its bound,
+    graphed and eager, a DECODE_BLOCK sweep, a ragged-stop batch, one
+    tts() under torch.profiler, fused = host path, the kernels against
+    the plain ResBlocks, stream() against tts_single(postprocess_mel=
+    False); returns the ResBlock launches of the counted tts()."""
+    from tts_arabic_torch.models import tacotron2 as t2
+    from tts_arabic_torch.ops import mas as mas_ops
+    from tts_arabic_torch.ops import resblock as rb
+    from tts_arabic_torch.vocoder import hifigan
+    set_tf32(False)
+    prompts = load_prompts(N_PROMPTS)
+    pipe = t2_pipe()
+    m = pipe.model
+    cap = m.decoder_max_step
+    batches = t2_batches(pipe, prompts)
+    buckets = sorted({b[0].shape[1] for b in batches})
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    m.capture_graphs((BATCH,), tuple(buckets))
+    capture_s = time.perf_counter() - t0
+    graph_mib = (torch.cuda.memory_reserved() - reserved) / 2 ** 20
+    t0 = time.perf_counter()
+    pipe.warmup(batch_sizes=(BATCH,), text_buckets=tuple(buckets))
+    warm_s = time.perf_counter() - t0
+    kw = dict(batch_size=BATCH, denoise=0.005)
+    walls = []
+    for i in range(N_TIMED - 1):
+        t0 = time.perf_counter()
+        pipe.tts(prompts, **kw)
+        walls.append(time.perf_counter() - t0)
+    with generator_calls() as calls:
+        rb.reset_launches()
+        mas_ops.reset_launches()
+        replays = m.graph_replays
+        t0 = time.perf_counter()
+        waves = pipe.tts(prompts, **kw)
+        walls.append(time.perf_counter() - t0)
+        launches = dict(rb.LAUNCHES)
+    replays = m.graph_replays - replays
+    want = {"resblock1_wide": 27 * len(batches),
+            "resblock1_narrow": 3 * len(batches)}
+    if launches != want or mas_ops.LAUNCHES["mas"]:
+        raise AssertionError(f"Tacotron2 tts() launches {launches}, "
+                             f"expected {want}, mas 0")
+    # the ResBlock kernels' f32 bound over this tts()'s generator calls
+    rb_bound = collections.Counter()
+    for B, F, _ in calls:
+        for C, per_frame in STAGE_T.items():
+            for k in KERNEL_SIZES:
+                rb_bound[rb.variant(C)] += max(bound(
+                    C, k, F * per_frame, torch.float32, batch=B))
+    frames = [len(w) // pipe.hop_length for w in waves]
+    for i, w in enumerate(waves):
+        if not (w.ndim == 1 and w.size and np.isfinite(w).all()
+                and w.size % pipe.hop_length == 0):
+            raise AssertionError(f"Tacotron2 prompt {i}: bad wave")
+    audio_s = sum(w.size for w in waves) / pipe.sample_rate
+    log(f"[12 tacotron2 tts] full width (512/1024/1024, postnet 5 x 512), "
+        f"f32, HiFi-GAN V1 f32, {len(prompts)} prompts, batch {BATCH}, "
+        f"decoder_max_step {cap}, DECODE_BLOCK {t2.DECODE_BLOCK}: "
+        f"capture_graphs() at batch {BATCH}, text {buckets}: "
+        f"{capture_s:.2f} s, {graph_mib:.1f} MiB; warmup()'s fused calls "
+        f"{warm_s:.2f} s | tts() {audio_s:.2f} s of "
+        f"audio: walls {', '.join(f'{w:.3f}' for w in walls)} s = "
+        f"{audio_s / walls[-1]:.1f}x real time | {replays} block replays | "
+        f"generator calls (mel shapes) {calls} | launches {launches}, mas 0 "
+        f"| frames per prompt {frames} | {smi}")
+
+    # the decode alone, per step, graphed and eager
+    ragged_batch = batches[-1]
+    b_us, o_us, w_bytes = t2_bound_us(pipe, ragged_batch)
+    wall_ms, dev_ms = t2_decode_ms(pipe, ragged_batch)
+    graphed = t2_profile_decode(pipe, ragged_batch, cap)
+    eager_cap = 300
+    with mock.patch.dict(m._graphs, clear=True), \
+            mock.patch.object(m, "decoder_max_step", eager_cap):
+        e_wall, e_dev = t2_decode_ms(pipe, ragged_batch, reps=1)
+        eager_p = t2_profile_decode(pipe, ragged_batch, eager_cap)
+    log(f"[12 tacotron2 decode] batch {BATCH} x text "
+        f"{ragged_batch[0].shape[1]}, f32: graphed {cap} steps "
+        f"{wall_ms:.1f} ms wall, {dev_ms:.1f} ms device = "
+        f"{wall_ms / cap * 1e3:.1f} / {dev_ms / cap * 1e3:.1f} us a step; "
+        f"eager ({eager_cap} steps) {e_wall / eager_cap * 1e3:.1f} / "
+        f"{e_dev / eager_cap * 1e3:.1f} us a step | bound a step "
+        f"{max(b_us, o_us):.2f} us (bytes {b_us:.2f}: {w_bytes / 1e6:.1f} MB "
+        f"of weights; operations {o_us:.2f}) | {smi}")
+    for label, p in (("graphed", graphed), ("eager", eager_p)):
+        if not p:
+            log(f"    profile {label}: no device events recorded, not "
+                "measured")
+            continue
+        log(f"    profile {label}: wall {p['wall_ms']:.1f} ms, device busy "
+            f"{p['busy_ms']:.1f} ms, idle {100 * p['idle']:.1f}% of the "
+            f"wall, device {p['dev_us_step']:.1f} us and "
+            f"{p['ops_step']:.1f} ops a step | top: "
+            + "; ".join(f"{n} {v:.1f} ms" for n, v in p["top"]))
+
+    # DECODE_BLOCK: the host reads the run flag once per block
+    sweep = []
+    with mock.patch.object(m, "decoder_max_step", 600), \
+            mock.patch.dict(m._graphs, clear=True):
+        for K in (4, 8, 16, 32, 64):
+            with mock.patch.object(t2, "DECODE_BLOCK", K):
+                m._graphs.clear()
+                m.capture_graphs((BATCH,), (ragged_batch[0].shape[1],))
+                w_ms, d_ms = t2_decode_ms(pipe, ragged_batch)
+                sweep.append(f"K={K} {w_ms / 600 * 1e3:.1f}/"
+                             f"{d_ms / 600 * 1e3:.1f}")
+        m._graphs.clear()
+    log(f"    DECODE_BLOCK sweep, graphed, 600 steps, us a step wall/device:"
+        f" {'; '.join(sweep)}")
+
+    # rows that stop ragged: the gate set from this batch's capped logits
+    gate = m.model.decoder.gate_layer.linear_layer
+    saved = (gate.weight.detach().clone(), gate.bias.detach().clone())
+    with torch.no_grad():
+        gate.bias.fill_(-100.0)
+    logits = m._infer(*ragged_batch)["gates"].cpu().numpy() + 100.0
+    scale, bias, stops = _t2_ragged_gate(logits, cap)
+    with torch.no_grad():
+        gate.weight.copy_(saved[0] * scale)
+        gate.bias.fill_(bias)
+    try:
+        t0 = time.perf_counter()
+        got = m._infer(*ragged_batch)
+        torch.cuda.synchronize()
+        g_s = time.perf_counter() - t0
+        with mock.patch.dict(m._graphs, clear=True):
+            t0 = time.perf_counter()
+            ref = m._infer(*ragged_batch)
+            torch.cuda.synchronize()
+            e_s = time.perf_counter() - t0
+    finally:
+        with torch.no_grad():
+            gate.weight.copy_(saved[0])
+            gate.bias.copy_(saved[1])
+    lens = got["mel_lens"].tolist()
+    err = float((got["mel"] - ref["mel"]).abs().max())
+    if (lens != ref["mel_lens"].tolist() or lens != [s + 1 for s in stops]
+            or len(set(lens)) < 2 or not err <= 1e-5):
+        raise AssertionError(f"ragged decode: graphed {lens}, eager "
+                             f"{ref['mel_lens'].tolist()}, predicted "
+                             f"{[s + 1 for s in stops]}, mel err {err:.2e}")
+    log(f"[12 tacotron2 ragged] gate weight x {scale:g}, bias {bias:.4f} "
+        f"(from the capped decode's logits): rows stop at {lens} (the "
+        f"recorded logits' prediction), graphed = eager, max|mel| err "
+        f"{err:.2e}; graphed {g_s * 1e3:.1f} ms, eager {e_s * 1e3:.1f} ms")
+
+    # one more tts() under the profiler: the ResBlocks' share
+    got = profiled(lambda: pipe.tts(prompts, **kw))
+    if got is None:
+        log(f"[12 tacotron2 profile] no device events recorded, not "
+            f"measured | {smi}")
+    else:
+        wall, by_name, busy, n_ops = got
+        rb_ms = sum(v for n, v in by_name.items() if "resblock1" in n)
+        wide_ms = sum(v for n, v in by_name.items()
+                      if "resblock1_pass" in n)
+        dev = sum(by_name.values())
+        log(f"[12 tacotron2 profile] tts() under torch.profiler: wall "
+            f"{wall * 1e3:.1f} ms, device busy {busy:.1f} ms (idle "
+            f"{100 * (1 - busy / 1e3 / wall):.1f}%), {n_ops} device ops "
+            f"summing {dev:.1f} ms | ResBlock kernels {rb_ms:.1f} ms = "
+            f"{100 * rb_ms / dev:.1f}% of the device time, "
+            f"{100 * rb_ms / 1e3 / wall:.1f}% of the wall: wide (f32) "
+            f"{wide_ms:.1f} ms, bound {rb_bound['resblock1_wide']:.1f}; "
+            f"narrow (f32) {rb_ms - wide_ms:.1f} ms, bound "
+            f"{rb_bound['resblock1_narrow']:.1f} | top: "
+            + "; ".join(f"{n} {v:.1f} ms" for n, v in by_name.most_common(8))
+            + f" | {smi}")
+
+    # fused path = host path, on the first batch
+    first = sorted(prompts, key=len, reverse=True)[:BATCH]
+    fused = pipe.tts(first, **kw)
+    host, mels = pipe.tts_batch(first, pad_to=BATCH, denoise=0.005,
+                                return_mel=True)
+    worst = 0.0
+    for f, h in zip(fused, host):
+        if f.shape != h.shape:
+            raise AssertionError(f"fused {f.shape} vs host {h.shape}")
+        worst = max(worst, float(np.abs(f - h).max()))
+    if not worst <= 1e-4:
+        raise AssertionError(f"fused vs host path: {worst:.2e}")
+    # the kernels against the plain ResBlocks, on the host path's mels
+    wave_k, lens_k = pipe._dispatch_vocode(mels, 0.005)
+    with mock.patch.object(hifigan, "resblock1", rb.resblock1_plain):
+        wave_p, _ = pipe._dispatch_vocode(mels, 0.005)
+    snrs = [snr_db(p, k) for k, p in zip(pipe._split_waves(wave_k, lens_k),
+                                         pipe._split_waves(wave_p, lens_k))]
+    if not min(snrs) > SNR_GATE[torch.float32]:
+        raise AssertionError(f"Tacotron2 vocoder SNR {snrs}")
+    log(f"[12 tacotron2 checks] fused path = host path within {worst:.2e} "
+        f"(8 prompts, lengths equal) | kernels vs plain ResBlocks on those "
+        f"mels: SNR min {min(snrs):.2f} dB (> {SNR_GATE[torch.float32]})")
+
+    # stream() against tts_single(postprocess_mel=False), one row
+    text = min(prompts, key=len)
+    n_ids = len(m.tokenize(text))
+    m.capture_graphs((1,), (-(-n_ids // 16) * 16,))
+    ref = pipe.tts_single(text, denoise=0.005, postprocess_mel=False)
+    firsts, fulls = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        gen = pipe.stream(text, denoise=0.005)
+        chunks = [next(gen)]
+        firsts.append(time.perf_counter() - t0)
+        chunks += list(gen)
+        t0 = time.perf_counter()
+        pipe.tts_single(text, denoise=0.005, postprocess_mel=False)
+        fulls.append(time.perf_counter() - t0)
+    streamed = np.concatenate(chunks)
+    err = float(np.abs(streamed - ref).max()) if streamed.shape == \
+        ref.shape else float("inf")
+    if not err <= 1e-4:
+        raise AssertionError(f"Tacotron2 stream vs tts_single: {err}")
+    log(f"[12 tacotron2 stream] one row ({n_ids} tokens, {len(ref) // 256} "
+        f"frames, {len(chunks)} chunks of 96): max|stream - tts_single"
+        f"(postprocess_mel=False)| {err:.2e} | first chunk "
+        f"{min(firsts) * 1e3:.1f} ms against the whole call "
+        f"{min(fulls) * 1e3:.1f} ms (min of 3, both replaying the graphs) "
+        f"| {smi}")
+    del pipe, m, waves, fused, host, mels
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_tacotron2_apps(smi: str, tmp: pathlib.Path) -> None:
+    """The inference CLI with --model tacotron2 on 8 prompts from a
+    reference `.pth` (f32, no graphs: each decode eager) against the same
+    weights' tts(speed=1.0) within 1 LSB; then the server with a tacotron2
+    registry entry after its warmup(): /api/tts, /api/tts/stream equal to
+    the model's own stream(), and a 400 for a rate other than 1."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from scipy.io import wavfile
+
+    from tts_arabic_torch.apps import inference, server
+    prompts = load_prompts(BATCH)
+    pipe = t2_pipe()
+    pipe.model.capture_graphs((BATCH,), (t2_batches(pipe, prompts)[0][0]
+                                         .shape[1],))
+    pth = tmp / "tacotron2.pth"
+    torch.save({"model": pipe.model.model.state_dict()}, pth)
+    lst = tmp / "prompts.txt"
+    lst.write_text("\n".join(prompts) + "\n", encoding="utf-8")
+    out_dir = tmp / "samples"
+    t0 = time.perf_counter()
+    inference.main(["--model", "tacotron2", "--list", str(lst),
+                    "--buckwalter", "--checkpoint", str(pth), "--out-dir",
+                    str(out_dir), "--batch-size", str(BATCH)])
+    cli_s = time.perf_counter() - t0
+    want = pipe.tts(prompts, speed=1.0, batch_size=BATCH, denoise=0.005)
+    worst = 0
+    for i, w in enumerate(want):
+        _, got = wavfile.read(out_dir / f"wave_{i:04d}.wav")
+        w16 = (np.clip(w, -1.0, 1.0) * 32767.0).astype(np.int16)
+        if got.shape != w16.shape:
+            raise AssertionError(f"CLI wave {i}: {got.shape} vs {w16.shape}")
+        worst = max(worst, int(np.abs(got.astype(np.int32) - w16).max()))
+    if worst > 1:
+        raise AssertionError(f"Tacotron2 CLI waves off by {worst} LSB")
+    log(f"[13 tacotron2 CLI] --model tacotron2, {len(prompts)} prompts from "
+        f"a .pth, f32, batch {BATCH}: {cli_s:.2f} s wall (model load and "
+        f"eager decodes included) | wavs within {worst} LSB of tts() | {smi}")
+    del pipe
+
+    manager = server.TTSManager([{"name": "tacotron2-f32",
+                                  "type": "tacotron2"}], device="cuda")
+    _, model = manager.models[0]
+    warm_s = manager.warmup()
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), server.make_handler(manager))
+    port = httpd.server_address[1]
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    text = "wa*alika biHuDuwri"   # within the warmed text bucket of 32
+    try:
+        conn, resp = _post(port, "/api/tts", {"buckw": text, "rate": 1.0})
+        waves = json.loads(resp.read())["waves"]
+        conn.close()
+        if resp.status != 200:
+            raise AssertionError(f"/api/tts: {resp.status}")
+        replays = model.model.graph_replays
+        t0 = time.perf_counter()
+        conn, resp = _post(port, "/api/tts/stream", {"buckw": text})
+        head = resp.read(2)
+        ttfb = time.perf_counter() - t0
+        got = head + resp.read()
+        conn.close()
+        replays = model.model.graph_replays - replays
+        want = b"".join(np.asarray(c).tobytes() for c in model.stream(
+            text, denoise=0.005, out_int16=True))
+        if resp.status != 200 or got != want or not replays:
+            raise AssertionError(f"/api/tts/stream: {resp.status}, "
+                                 f"{len(got)} vs {len(want)} bytes, "
+                                 f"{replays} replays")
+        conn, resp = _post(port, "/api/tts/stream",
+                           {"buckw": text, "rate": 1.25})
+        body = resp.read()
+        conn.close()
+        if resp.status != 400 or b"tacotron2" not in body:
+            raise AssertionError(f"rate 1.25 on the stream: {resp.status}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    log(f"[13 tacotron2 server] registry of one full-width f32 Tacotron2: "
+        f"warmup() {warm_s:.2f} s | /api/tts wrote {waves[0]['url']} | "
+        f"/api/tts/stream {len(got)} bytes = the model's stream(), "
+        f"{replays} block replays, first byte {ttfb * 1e3:.1f} ms | "
+        f"rate 1.25 on the stream: 400 | {smi}")
+    del manager, model
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs on the GPU",
@@ -1543,6 +2014,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="smoke_apps_",
                                      dir=build_dir) as tmp:
         phase_apps(smi, pathlib.Path(tmp))
+    t2_launches = phase_tacotron2(smi)
+    with tempfile.TemporaryDirectory(prefix="smoke_t2_apps_",
+                                     dir=build_dir) as tmp:
+        phase_tacotron2_apps(smi, pathlib.Path(tmp))
     replaces = {
         "resblock1_wide": "tts_arabic_tpu/ops/hifigan_pallas.py:153",
         "resblock1_narrow": "tts_arabic_tpu/ops/hifigan_pallas.py:547",
@@ -1557,7 +2032,8 @@ def main() -> int:
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": ("operations" if s["t_ops"] >= s["t_bytes"]
                          else "bytes"),
-            "library_ms": None})
+            "library_ms": None,
+            "tacotron2_launches": t2_launches[kname]})
     # one MAS launch per training step and validation batch, each timed at
     # its own batch's shape in phase 6
     kernels.append({
@@ -1568,7 +2044,7 @@ def main() -> int:
         "max_abs_err": mas["max_abs_err"],
         **{k: sum(r[k] for r in mas["rows"])
            for k in ("ms", "plain_ms", "bound_ms")},
-        "bound_by": "bytes", "library_ms": None})
+        "bound_by": "bytes", "library_ms": None, "tacotron2_launches": 0})
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

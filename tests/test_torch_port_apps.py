@@ -168,18 +168,20 @@ def test_inference_cli_on_the_cpu(weights, tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--model", "tacotron2"], "Tacotron2"),
+    (["--model", "tacotron2", "--quantize", "int8"], "Tacotron2"),
     (["--quantize", "int8"], "int8")])
 def test_unported_options_raise(argv, match, monkeypatch):
-    """Refused before anything is loaded, in the CLI and the registry."""
+    """int8 serving is refused before anything is loaded, for either model,
+    in the CLI and the registry."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(NotImplementedError, match=match):
         inference.main(argv)
-    entry = {"name": "x", "type": "fastpitch"}
-    entry.update({"model": {"type": "tacotron2"},
-                  "quantize": {"quantize": "int8"}}[argv[0][2:]])
+    entry = {"name": "x", "quantize": "int8",
+             "type": argv[1] if argv[0] == "--model" else "fastpitch"}
     with pytest.raises(NotImplementedError, match=match):
         server.TTSManager([entry], device="cpu")
+    with pytest.raises(ValueError, match="model type"):
+        server.TTSManager([{"name": "x", "type": "vocos"}], device="cpu")
 
 
 def test_cli_and_server_need_a_card_by_default(monkeypatch):

@@ -301,6 +301,45 @@ def test_resblock1_kernels_at_stream_shapes(cuda, C, T, dtype):
         assert rel <= TOL[dtype], (k, rel)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_generator_side_streams_equal_one_stream(cuda, dtype):
+    """HiFi-GAN V1 with each stage's ResBlocks on side streams gives, bit
+    for bit, what the same kernels give one after another on one stream,
+    at a window's shape and at a batch's; the kept weights follow a loaded
+    state dict."""
+    from unittest import mock
+
+    from tts_arabic_torch.models.layers import init_weights
+    from tts_arabic_torch.vocoder.hifigan import Generator, HiFiGANConfig
+
+    def one_stream(blocks, x):
+        acc = blocks[0](x)
+        for block in blocks[1:]:
+            acc = acc + block(x)
+        return acc / len(blocks)
+
+    gen = init_weights(Generator(HiFiGANConfig()), 1).to(cuda).eval()
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for shape in ((1, 160, 80), (4, 256, 80)):
+            mel = torch.randn(shape, generator=g).to(cuda, dtype)
+            before = dict(rb.LAUNCHES)
+            got = gen(mel)
+            assert rb.LAUNCHES["resblock1_wide"] - before[
+                "resblock1_wide"] == 27
+            with mock.patch.object(Generator, "_fuse",
+                                   staticmethod(one_stream)):
+                want = gen(mel)
+            assert torch.equal(got, want), shape
+        state = {k: v * 0.9 for k, v in gen.state_dict().items()}
+        fresh = Generator(HiFiGANConfig()).to(cuda).eval()
+        fresh.load_state_dict(state)
+        gen.load_state_dict(state)
+        assert torch.equal(gen(mel), fresh(mel))
+
+
 # bf16 stream against tts_single: chip_smoke.py's STREAM_BF16_SNR
 STREAM_BF16_SNR = 36.56
 STREAM_TEXT = "bisomi {ll~ahi {lr~aHoma`ni {lr~aHiymi"
@@ -425,3 +464,95 @@ def test_stream_graphs_replay_and_interleave(cuda):
     for got, want in zip(turns, alone):
         assert len(got) == len(want)
         assert all(np.array_equal(a, b) for a, b in zip(got, want))
+
+
+# ---- Tacotron2 ---------------------------------------------------------------
+
+T2_TEXTS = ["Sifr wAHid", "*ahaba Alwaladu <ilaY Almadrasapi"]
+
+
+def _t2_pipe(steps=300, **kw):
+    """Full-width Tacotron2 and HiFi-GAN V1, seeded; the random gate never
+    fires, so every decode runs to `steps`."""
+    from tts_arabic_torch.infer import Tacotron2Wave
+    pipe = Tacotron2Wave(seed=0, arabic_in=False, device="cuda", **kw)
+    pipe.model.decoder_max_step = steps
+    return pipe
+
+
+def _t2_batch(pipe, texts):
+    m = pipe.model
+    padded, lens, spk, _, _ = m._sorted_batch(m.tokenize_batch(texts), 0,
+                                              None)
+    return padded, lens, spk
+
+
+@pytest.mark.cuda
+def test_tacotron2_graphed_block_equals_eager(cuda):
+    """In f32 the replayed decode-block graph gives the eager blocks'
+    lengths and outputs within 1e-5, for a batch and for a stream's
+    segments (which replay the graph at batch 1)."""
+    import numpy as np
+    pipe = _t2_pipe()
+    m = pipe.model
+    padded, lens, spk = _t2_batch(pipe, T2_TEXTS)
+    eager = m._infer(padded, lens, spk)
+    m.capture_graphs((len(T2_TEXTS),), (padded.shape[1],))
+    replays = m.graph_replays
+    graphed = m._infer(padded, lens, spk)
+    assert m.graph_replays > replays
+    assert torch.equal(graphed["mel_lens"], eager["mel_lens"])
+    for key in ("mel", "mel_postnet", "alignments", "gates"):
+        assert float((graphed[key] - eager[key]).abs().max()) <= 1e-5, key
+
+    text = T2_TEXTS[0]
+    n_ids = len(m.tokenize(text))
+    want = pipe.tts_single(text, denoise=0.004, postprocess_mel=False)
+    m.capture_graphs((1,), (-(-n_ids // 16) * 16,))
+    replays = m.graph_replays
+    got = np.concatenate(list(pipe.stream(text, chunk_frames=64,
+                                          denoise=0.004)))
+    assert m.graph_replays > replays
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_tacotron2_replays_draw_the_callers_dropout_masks(cuda):
+    """The prenet masks are an input of the graph, not state inside it:
+    replays with two generator seeds differ, a seed replayed twice gives
+    the same outputs, and a replay equals the eager decode with the same
+    masks."""
+    pipe = _t2_pipe(steps=200)
+    m = pipe.model
+    padded, lens, spk = _t2_batch(pipe, T2_TEXTS)
+
+    def decode(seed):
+        gen = torch.Generator("cuda").manual_seed(seed)
+        return m._infer(padded, lens, spk, gen)["mel"]
+    eager = decode(1)
+    m.capture_graphs((len(T2_TEXTS),), (padded.shape[1],))
+    a, b, c = decode(1), decode(1), decode(2)
+    assert torch.equal(a, b)
+    assert float((a - c).abs().max()) > 1e-3
+    assert float((a - eager).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_tacotron2_tts_runs_the_resblock_kernels(cuda):
+    """Tacotron2Wave.tts() in f32 vocodes through the ResBlock kernels (27
+    wide and 3 narrow launches per generator call) and its waves hold the
+    plain ResBlocks' above 40 dB."""
+    import numpy as np
+    from unittest import mock
+
+    from tts_arabic_torch.vocoder import hifigan
+    pipe = _t2_pipe(steps=400)
+    rb.reset_launches()
+    kern = pipe.tts(T2_TEXTS, batch_size=2, denoise=0.005)
+    assert rb.LAUNCHES == {"resblock1_wide": 27, "resblock1_narrow": 3}
+    with mock.patch.object(hifigan, "resblock1", rb.resblock1_plain):
+        plain = pipe.tts(T2_TEXTS, batch_size=2, denoise=0.005)
+    for k, p in zip(kern, plain):
+        assert k.shape == p.shape and len(k) > 0
+        assert _snr_db(p, k) > 40.0

@@ -53,6 +53,28 @@ def test_generator_full_width_matches_flax(generators):
     assert _snr_db(ref, got) > 60.0
 
 
+def test_resblock_stacks_kept_until_a_parameter_changes():
+    """`ResBlock1` hands `resblock1` the same stacked weights call after
+    call, and new ones once a parameter changes (a loaded state dict) or
+    while gradients are recorded; its output follows the new weights."""
+    torch.manual_seed(0)
+    block = port_hifigan.ResBlock1(8, 3, (1, 3, 5))
+    x = torch.randn(1, 20, 8)
+    with torch.no_grad():
+        first = block._stacks()
+        assert all(a is b for a, b in zip(block._stacks(), first))
+        y0 = block(x)
+        state = {k: v * 0.5 for k, v in block.state_dict().items()}
+        block.load_state_dict(state)
+        second = block._stacks()
+        assert second[0] is not first[0]
+        torch.testing.assert_close(second[0], first[0] * 0.5)
+        assert not torch.equal(block(x), y0)
+    with torch.enable_grad():
+        a = block._stacks()
+        assert a[0].requires_grad and block._stacks()[0] is not a[0]
+
+
 def test_bias_spec_matches_jax(generators):
     gen, variables, port = generators
     ref = np.asarray(jax.jit(lambda v: jax_denoiser.compute_bias_spec(

@@ -48,7 +48,8 @@ def test_module_walk_reaches_every_sub_package():
     for mod in ("align.mas", "align.prior", "apps.html_report",
                 "apps.inference", "apps.server", "apps.train_fastpitch",
                 "data.dataset", "data.f0", "diacritizers.models",
-                "eval.alignment", "infer.longform", "ops.ctc", "ops.mas",
+                "eval.alignment", "infer.longform", "infer.tacotron_pipeline",
+                "models.tacotron2", "ops.ctc", "ops.mas",
                 "runtime.checkpoint", "runtime.config", "runtime.logging",
                 "train.losses", "train.steps", "train.trainer"):
         assert f"tts_arabic_torch.{mod}" in names, mod
@@ -72,7 +73,8 @@ def test_no_source_file_imports_jax_or_the_jax_package():
 
 
 @pytest.mark.parametrize("entry", ["FastPitch2Wave", "FastPitchTTS",
-                                   "Shakkala", "Shakkelha"])
+                                   "Shakkala", "Shakkelha", "Tacotron2Wave",
+                                   "Tacotron2TTS"])
 def test_entry_points_raise_without_cuda(entry, monkeypatch):
     from tts_arabic_torch import diacritizers, infer
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -147,3 +147,26 @@ def test_kernel_weights_rebuild_the_conv_weights(dtype):
                                           dilation=d, padding=r * d)
         torch.testing.assert_close(gemm, conv.transpose(1, 2), atol=1e-5,
                                    rtol=1e-5)
+
+
+def test_kernel_weights_kept_until_the_weights_change():
+    """The same weights give the same converted tensor until they change in
+    place or another dtype is asked for; the result stays right each time."""
+    g = torch.Generator().manual_seed(1)
+    w = torch.randn((3, 8, 8, 3), generator=g)
+    first = port_rb.kernel_weights(w, torch.bfloat16)
+    assert port_rb.kernel_weights(w, torch.bfloat16) is first
+    f32 = port_rb.kernel_weights(w, torch.float32)
+    assert f32 is not first and f32.dtype == torch.float32
+    assert torch.equal(f32.permute(0, 3, 2, 1), w)
+    with torch.no_grad():
+        w.mul_(2.0)
+    again = port_rb.kernel_weights(w, torch.float32)
+    assert again is not f32
+    assert torch.equal(again.permute(0, 3, 2, 1), w)
+    # a weight that records gradients is converted afresh each call
+    w.requires_grad_(True)
+    with torch.enable_grad():
+        a = port_rb.kernel_weights(w, torch.float32)
+        assert a.requires_grad
+        assert port_rb.kernel_weights(w, torch.float32) is not a

@@ -48,3 +48,57 @@ def write_weights(directory, seed: int = 0, duration_bias: float = 2.0):
     vocoder = d / "hifigan.pth"
     torch.save({"generator": generator.state_dict()}, vocoder)
     return str(fastpitch), str(vocoder), str(vocoder_json)
+
+
+# JAX's SMALL Tacotron2 (tests/test_tacotron_pipeline.py)
+SMALL_TACOTRON2 = dict(
+    n_symbols=40, symbol_embedding_dim=32, encoder_embedding_dim=32,
+    num_speakers=1, decoder_rnn_dim=48, attention_rnn_dim=48,
+    attention_hidden_dim=16, attention_location_n_filters=4,
+    attention_location_kernel_size=7, prenet_dim=16,
+    postnet_embedding_dim=32, postnet_n_convolutions=3, n_mels=80,
+    decoder_max_step=96)
+
+
+def tacotron2_state_dict(config, seed: int = 0,
+                         gate_bias: float = -2.0) -> dict:
+    """Seeded reference-layout Tacotron2 weights, drawn with numpy: weights
+    N(0, 1/fan_in), biases N(0, 0.1), BatchNorm scale U(0.8, 1.2) and
+    running statistics mean N(0, 0.1), var U(0.5, 1.5). The gate bias is
+    set to `gate_bias` (-2.0 keeps the random gate shut, so a decode runs
+    to its step cap)."""
+    import numpy as np
+
+    from tts_arabic_torch.models.tacotron2 import Tacotron2
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for key, val in Tacotron2(config).state_dict().items():
+        shape = tuple(val.shape)
+        if key.endswith("num_batches_tracked"):
+            sd[key] = torch.tensor(0)
+            continue
+        if key.endswith("running_var"):
+            a = rng.uniform(0.5, 1.5, shape)
+        elif key.endswith("running_mean") or len(shape) == 1 and (
+                "bias" in key):
+            a = 0.1 * rng.standard_normal(shape)
+        elif len(shape) == 1:           # a BatchNorm scale
+            a = rng.uniform(0.8, 1.2, shape)
+        else:
+            a = rng.standard_normal(shape) / np.sqrt(np.prod(shape[1:]))
+        sd[key] = torch.tensor(a, dtype=torch.float32)
+    sd["decoder.gate_layer.linear_layer.bias"].fill_(gate_bias)
+    return sd
+
+
+def write_tacotron2_weights(directory, config, seed: int = 0,
+                            gate_bias: float = -2.0) -> str:
+    """A reference Tacotron2 `.pth` ({'model', 'config'}) that the port
+    and the JAX package both load."""
+    import dataclasses
+    d = pathlib.Path(directory)
+    d.mkdir(parents=True, exist_ok=True)
+    path = d / "tacotron2.pth"
+    torch.save({"model": tacotron2_state_dict(config, seed, gate_bias),
+                "config": dataclasses.asdict(config)}, path)
+    return str(path)

@@ -5,11 +5,12 @@ of the JAX package's `apps/inference.py`).
         --buckwalter --checkpoint <states.ckpt or .pth> --out-dir samples/
     python -m tts_arabic_torch.apps.inference ... --device cpu
 
-Synthesizes every line of the list file and writes wavs and an HTML
-listening page. The flags are the JAX CLI's, plus `--device`: it runs on
-the CUDA card unless `--device cpu` (or `--cpu`) is given, and raises when
-there is no card. `--model tacotron2` and `--quantize int8` are not ported
-yet and raise.
+Synthesizes every line of the list file with FastPitch (bf16 decoder and
+vocoder, the `--bf16` default) or `--model tacotron2` (f32 throughout, as
+the JAX CLI builds it) and HiFi-GAN, and writes wavs and an HTML listening
+page. The flags are the JAX CLI's, plus `--device`: it runs on the CUDA
+card unless `--device cpu` (or `--cpu`) is given, and raises when there is
+no card. `--quantize int8` is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -37,15 +38,13 @@ def read_lines(path):
 
 
 def not_ported(model: str = "fastpitch", quantize=None) -> None:
-    """Raise for the serving options whose slices are not ported yet."""
-    if model != "fastpitch":
-        raise NotImplementedError(
-            f"--model {model} is not ported yet: Tacotron2 is a later slice "
-            "of the port (ROADMAP.md, queue 1, item 10)")
+    """Raise for the serving options whose slice is not ported yet."""
     if quantize:
+        name = {"fastpitch": "FastPitch", "tacotron2": "Tacotron2"}[model]
         raise NotImplementedError(
-            f"--quantize {quantize} is not ported yet: the int8 serving path "
-            "is a later slice of the port (ROADMAP.md, queue 1, item 7)")
+            f"--quantize {quantize} is not ported yet for {name}: the int8 "
+            "serving path is a later slice of the port (ROADMAP.md, queue "
+            "1, item 2)")
 
 
 def main(argv=None):
@@ -75,13 +74,18 @@ def main(argv=None):
     args = parser.parse_args(argv)
     not_ported(args.model, args.quantize)
 
-    from ..infer import FastPitch2Wave
-    tts = FastPitch2Wave(
-        args.checkpoint, vocoder_sd=args.vocoder_sd,
-        vocoder_config=args.vocoder_config, vowelizer=args.vowelizer,
-        arabic_in=not args.buckwalter,
-        compute_dtype=torch.bfloat16 if args.bf16 else None,
-        device="cpu" if args.cpu else args.device)
+    kwargs = dict(vocoder_sd=args.vocoder_sd,
+                  vocoder_config=args.vocoder_config,
+                  vowelizer=args.vowelizer, arabic_in=not args.buckwalter,
+                  device="cpu" if args.cpu else args.device)
+    if args.model == "fastpitch":
+        from ..infer import FastPitch2Wave
+        tts = FastPitch2Wave(
+            args.checkpoint,
+            compute_dtype=torch.bfloat16 if args.bf16 else None, **kwargs)
+    else:
+        from ..infer import Tacotron2Wave
+        tts = Tacotron2Wave(args.checkpoint, **kwargs)
 
     lines = read_lines(args.list)
     print(f"synthesizing {len(lines)} utterances with {args.model} on "

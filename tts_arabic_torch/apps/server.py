@@ -12,20 +12,24 @@ Endpoints (reference app.py:16-43, plus streaming):
 - POST /api/tts/stream : the same JSON (+ "format": "s16le" | "mulaw") ->
                       chunked raw PCM from the first registry model, one
                       HTTP chunk per vocoded window (X-Audio-Format,
-                      X-Sample-Rate and X-Model headers)
+                      X-Sample-Rate and X-Model headers). A Tacotron2 model
+                      streams at its own speed: a "rate" other than 1 is a
+                      400 (its `stream()` has no speed)
 - GET  /static/...  : generated audio
 
-The registry (`app_models.yaml`) lists the models to serve: name, type,
-optional checkpoint (a reference `.pth` or a `states.ckpt` of
-`apps.train_fastpitch`), vocoder_sd / vocoder_config, and, for the port,
-compute_dtype (bfloat16 or float32, default float32). Types other than
-fastpitch and a `quantize` entry are not ported yet and raise. The models
-run on the CUDA card unless `--device cpu` is given. Before it serves,
-the server runs `TTSManager.warmup()`, which builds the kernels, meets
-the serving shapes once and captures the CUDA graphs that every one-row
-encode and decode then replays. Built on stdlib http.server; the Arabic <->
-Buckwalter mapping of the page runs in the browser, from the same tables
-as the Python frontend.
+The registry (`app_models.yaml`) lists the models to serve: name, type
+(fastpitch or tacotron2, each with HiFi-GAN), optional checkpoint (a
+reference `.pth`, or a `states.ckpt` of `apps.train_fastpitch`),
+vocoder_sd / vocoder_config, and, for the port, compute_dtype (bfloat16
+or float32, default float32). A `quantize` entry is not ported yet and
+raises. The models run on the CUDA card unless `--device cpu` is given.
+Before it serves, the server runs `TTSManager.warmup()`: each pipeline's
+own `warmup()` (FastPitch: its bucket grid and the one-row encode and
+decoder graphs; Tacotron2: the decode-block graphs at batch 1 and text
+buckets 16 and 32), which builds the kernels and meets the serving shapes
+once. Built on stdlib http.server; the Arabic <-> Buckwalter mapping of
+the page runs in the browser, from the same tables as the Python
+frontend.
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ from ..text.buckwalter import _ARABIC, _BUCKWALTER
 from .inference import not_ported
 
 _STATIC = pathlib.Path(__file__).parent / "static"
+_TYPES = ("fastpitch", "tacotron2")
 _DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
 WARMUP_TEXT = "m a r H a b a n b i k u m"
 
@@ -90,6 +95,10 @@ document.getElementById('go').onclick = async () => {{
 </script></body></html>"""
 
 
+class BadRequest(ValueError):
+    """A request the models cannot serve as asked: answered with a 400."""
+
+
 class TTSManager:
     """Loads every registered model and synthesizes with each per request
     (reference `TTSManager`, utils/app_utils.py:59-84). All models stay
@@ -112,7 +121,10 @@ class TTSManager:
 
     @staticmethod
     def _load(item, device):
-        not_ported(item.get("type", "fastpitch"), item.get("quantize"))
+        kind = item.get("type", "fastpitch")
+        if kind not in _TYPES:
+            raise ValueError(f"model type {kind!r}: one of {_TYPES}")
+        not_ported(kind, item.get("quantize"))
         dtype = item.get("compute_dtype")
         if dtype not in _DTYPES:
             raise ValueError(f"compute_dtype {dtype!r}: bfloat16 or float32")
@@ -123,24 +135,30 @@ class TTSManager:
         if item.get("vocoder_sd"):
             kwargs["vocoder_sd"] = item["vocoder_sd"]
             kwargs["vocoder_config"] = item.get("vocoder_config")
-        from ..infer import FastPitch2Wave
-        return FastPitch2Wave(**kwargs)
+        from ..infer import FastPitch2Wave, Tacotron2Wave
+        return (FastPitch2Wave if kind == "fastpitch"
+                else Tacotron2Wave)(**kwargs)
 
     def warmup(self) -> float:
         """Meet the serving shapes once before the first request, so none
         pays the kernel build, a cuDNN algorithm search or a CUDA graph
-        capture: each pipeline's `warmup()` (its bucket grid and its
-        one-row encode and decoder graphs), then one request through
-        /api/tts's path and one through the stream's. Returns the wall
-        seconds spent."""
+        capture: each pipeline's own `warmup()` (FastPitch: its bucket grid
+        and its one-row encode and decoder graphs; Tacotron2: its
+        decode-block graphs and one fused call per text bucket), then one
+        request through /api/tts's path and one through the stream's.
+        Returns the wall seconds spent."""
         t0 = time.perf_counter()
         self._on_worker(self._warmup)
         return time.perf_counter() - t0
 
     def _warmup(self):
+        from ..infer import FastPitch2Wave
         for _, model in self.models:
-            model.warmup(batch_sizes=(1,), text_buckets=(16,),
-                         mel_buckets=MEL_BUCKETS)
+            if isinstance(model, FastPitch2Wave):
+                model.warmup(batch_sizes=(1,), text_buckets=(16,),
+                             mel_buckets=MEL_BUCKETS)
+            else:       # Tacotron2Wave: its decode-block graphs
+                model.warmup(batch_sizes=(1,), text_buckets=(16, 32))
         self._tts(WARMUP_TEXT)
         for _ in self._stream(self.models[0][1], WARMUP_TEXT):
             pass
@@ -165,18 +183,27 @@ class TTSManager:
         chunks as each window is vocoded (pipeline `.stream()`). fmt:
         "s16le" (native int16) or "mulaw" (uint8 G.711-style codes).
         Returns (name, sample_rate, generator)."""
+        from ..infer import Tacotron2Wave
         if fmt not in ("s16le", "mulaw"):
             raise ValueError(f"unknown stream format {fmt!r}")
         name, model = self.models[0]
+        if isinstance(model, Tacotron2Wave) and rate != 1.0:
+            raise BadRequest(
+                f"rate {rate}: the stream's first model, {name!r}, is a "
+                "tacotron2 model, whose stream() has no speed; send rate "
+                "1.0, or /api/tts for another rate")
         gen = self._stream(model, buckw, rate, denoise, fmt)
         chunks = iter(lambda: self._on_worker(next, gen, None), None)
         return name, model.sample_rate, chunks
 
     @staticmethod
     def _stream(model, buckw, rate=1.0, denoise=0.005, fmt="s16le"):
-        for chunk in model.stream(buckw, speed=rate, denoise=denoise,
-                                  out_int16="mulaw" if fmt == "mulaw"
-                                  else True):
+        from ..infer import Tacotron2Wave
+        kw = dict(denoise=denoise,
+                  out_int16="mulaw" if fmt == "mulaw" else True)
+        if not isinstance(model, Tacotron2Wave):
+            kw["speed"] = rate
+        for chunk in model.stream(buckw, **kw):
             yield np.asarray(chunk).tobytes()
 
 
@@ -222,6 +249,9 @@ def make_handler(manager: TTSManager):
                                         float(req.get("denoise", 0.005)))
                 body = json.dumps({"waves": waves}).encode()
                 return self._send(200, body)
+            except BadRequest as e:
+                return self._send(400, json.dumps(
+                    {"error": str(e)}).encode())
             except Exception as e:  # surface errors to the client
                 return self._send(500, json.dumps(
                     {"error": str(e)}).encode())
@@ -261,6 +291,9 @@ def make_handler(manager: TTSManager):
                                 + chunk + b"\r\n")
                             self.wfile.flush()
                     self.wfile.write(b"0\r\n\r\n")
+            except BadRequest as e:
+                return self._send(400, json.dumps(
+                    {"error": str(e)}).encode())
             except Exception as e:
                 if headers_sent:
                     # mid-stream failure: a second response would corrupt

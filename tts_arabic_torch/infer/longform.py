@@ -11,7 +11,7 @@ shared-with-the-reference quirk (trailing '.' raises KeyError in
 `tokens_to_ids` — reference `text/__init__.py` behaves identically).
 
 Works with any pipeline exposing `.tts`/`.stream`/`.sample_rate`
-(FastPitch2Wave).
+(FastPitch2Wave, Tacotron2Wave).
 """
 from __future__ import annotations
 

@@ -158,6 +158,66 @@ def _bilstm_t(sd, prefix, p):
         sd[f"{prefix}.bias_hh_l0{suffix}"] = _np(q["bh"])
 
 
+def _lstm_cell_t(sd, prefix, p):
+    """One LSTM cell (wi [in, 4H], wh [H, 4H], bi, bh) -> `nn.LSTMCell`
+    keys."""
+    sd[f"{prefix}.weight_ih"] = np.ascontiguousarray(_np(p["wi"]).T)
+    sd[f"{prefix}.weight_hh"] = np.ascontiguousarray(_np(p["wh"]).T)
+    sd[f"{prefix}.bias_ih"] = _np(p["bi"])
+    sd[f"{prefix}.bias_hh"] = _np(p["bh"])
+
+
+def _bn_t(sd, prefix, p, stats):
+    sd[f"{prefix}.weight"] = _np(p["scale"])
+    sd[f"{prefix}.bias"] = _np(p["bias"])
+    sd[f"{prefix}.running_mean"] = _np(stats["mean"])
+    sd[f"{prefix}.running_var"] = _np(stats["var"])
+    sd[f"{prefix}.num_batches_tracked"] = np.asarray(0, np.int64)
+
+
+def tacotron2_params_to_torch(variables: dict, config) -> dict:
+    """flax Tacotron2 variables {'params', 'batch_stats'} -> reference
+    Tacotron2MS state dict (torchaudio `_Encoder`/`_Decoder`/`_Postnet`
+    layout), BatchNorm running statistics included."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: dict = {"embedding.weight": _np(params["embedding"]["embedding"])}
+    for i in range(config.encoder_n_convolutions):
+        _conv1d_t(sd, f"encoder.convolutions.{i}.0.conv",
+                  params[f"enc_conv_{i}"])
+        _bn_t(sd, f"encoder.convolutions.{i}.1", params[f"enc_bn_{i}"],
+              stats[f"enc_bn_{i}"])
+    _bilstm_t(sd, "encoder.lstm", params["enc_lstm"])
+    if "speaker_embedding" in params:
+        sd["speaker_embedding.weight"] = _np(
+            params["speaker_embedding"]["embedding"])
+    dec = "decoder"
+    att = f"{dec}.attention_layer"
+    _dense_t(sd, f"{dec}.prenet.layers.0.linear_layer", params["prenet1"],
+             bias=False)
+    _dense_t(sd, f"{dec}.prenet.layers.1.linear_layer", params["prenet2"],
+             bias=False)
+    _lstm_cell_t(sd, f"{dec}.attention_rnn", params["attention_rnn"])
+    _lstm_cell_t(sd, f"{dec}.decoder_rnn", params["decoder_rnn"])
+    _dense_t(sd, f"{att}.query_layer.linear_layer", params["query_layer"],
+             bias=False)
+    _dense_t(sd, f"{att}.memory_layer.linear_layer", params["memory_layer"],
+             bias=False)
+    _dense_t(sd, f"{att}.v.linear_layer", params["v"], bias=False)
+    _conv1d_t(sd, f"{att}.location_layer.location_conv.conv",
+              params["location_conv"])
+    _dense_t(sd, f"{att}.location_layer.location_dense.linear_layer",
+             params["location_dense"], bias=False)
+    _dense_t(sd, f"{dec}.linear_projection.linear_layer",
+             params["linear_projection"])
+    _dense_t(sd, f"{dec}.gate_layer.linear_layer", params["gate_layer"])
+    for i in range(config.postnet_n_convolutions):
+        _conv1d_t(sd, f"postnet.convolutions.{i}.0.conv",
+                  params[f"post_conv_{i}"])
+        _bn_t(sd, f"postnet.convolutions.{i}.1", params[f"post_bn_{i}"],
+              stats[f"post_bn_{i}"])
+    return sd
+
+
 def diacritizer_params_to_torch(params: dict) -> dict:
     """The JAX diacritizers' numpy parameter dicts -> the reference `.pth`
     layout (the inverse of the JAX package's `_import_bilstm` and

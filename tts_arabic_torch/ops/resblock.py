@@ -69,8 +69,20 @@ def variant(channels: int) -> str:
 def kernel_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Stacked Conv1d weights [n_d, C_out, C_in, k] -> the layout the
     kernels read, [n_d, k, C_in, C_out] contiguous in `dtype`: each conv a
-    [k*C_in, C_out] matrix, K rows (tap, then input channel) by N."""
-    return w.permute(0, 3, 2, 1).contiguous().to(dtype)
+    [k*C_in, C_out] matrix, K rows (tap, then input channel) by N.
+
+    The result is kept on `w` until `w` changes in place or is asked for
+    in another dtype, so a caller that passes the same weights each call
+    (`vocoder.hifigan.ResBlock1`) converts them once."""
+    if torch.is_grad_enabled() and w.requires_grad:
+        return w.permute(0, 3, 2, 1).contiguous().to(dtype)
+    key = (w._version, dtype)
+    kept = getattr(w, "_kernel_layout", None)
+    if kept is not None and kept[0] == key:
+        return kept[1]
+    out = w.permute(0, 3, 2, 1).contiguous().to(dtype)
+    w._kernel_layout = (key, out)
+    return out
 
 
 def _check(x, w1, b1, w2, b2, k, dilations):

@@ -22,6 +22,7 @@ phones, each slot either a single phone or a list of alternatives ('' = omit).
 """
 from __future__ import annotations
 
+import functools
 import re
 
 # ---------------------------------------------------------------------------
@@ -341,12 +342,25 @@ def phonetise_word(word: str) -> list[list[str]] | str:
     return [_cleanup(p) for p in prons]
 
 
-def process_word(word: str) -> list[str] | str:
-    """Best pronunciation of one word (reference-API name)."""
+@functools.lru_cache(maxsize=1 << 16)
+def _best_pronunciation(word: str) -> tuple[str, ...] | str:
     result = phonetise_word(word)
-    if isinstance(result, str):
-        return result
-    return result[0]
+    return result if isinstance(result, str) else tuple(result[0])
+
+
+def clear_word_cache() -> None:
+    """Forget every pronunciation `process_word` keeps (for timing text
+    whose words were not met before)."""
+    _best_pronunciation.cache_clear()
+
+
+def process_word(word: str) -> list[str] | str:
+    """Best pronunciation of one word (reference-API name). A word's
+    pronunciation depends on the word alone, so those of the last 65,536
+    distinct words are kept: the rule pass costs ~13 us a word, and
+    running text repeats many of its words."""
+    best = _best_pronunciation(word)
+    return best if isinstance(best, str) else list(best)
 
 
 def process_utterance(utterance: str) -> str:

@@ -7,14 +7,17 @@ Builds `chip_smoke.py`'s serving configuration on the card (full-width
 FastPitch and HiFi-GAN V1, seeded, the duration bias raised by 2.0, bf16),
 joins the first prompts of data/infer_text.txt until `stream()` makes 8
 chunks of 128 frames, and prints, each as the min and the median of 5
-runs on the host clock ending in a synchronize:
+runs on the host clock ending in a synchronize unless said otherwise:
 
 - what `capture_graphs()` costs: its wall seconds and the device memory
   its graphs hold;
-- the stages of a first chunk run one at a time: tokenize, encode and
-  decode (replayed from their CUDA graphs, and eager), a window's
-  generator (with a synchronize, and its host dispatch alone), the
-  denoiser;
+- the stages of a first chunk run one at a time: tokenize (its words
+  met before, and none of them met), encode and decode (replayed from
+  their CUDA graphs, and eager), a window's generator (with a
+  synchronize, its host dispatch alone, and its device critical path by
+  CUDA events with the host ahead), the generator at the whole call's
+  mel bucket (device critical path), both device paths again with each
+  stage's ResBlocks in turn on one stream, the denoiser;
 - the first chunk and the whole `tts_single`, each with the graphs and
   eager;
 
@@ -35,11 +38,14 @@ import torch
 
 from ..infer import FastPitch2Wave
 from ..infer import pipeline as pl
+from ..text import phonetizer
 from ..vocoder import denoiser
+from ..vocoder.hifigan import Generator
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 CHUNK, OVERLAP, MIN_CHUNKS = 128, 16, 8
 REPS = 5
+SLEEP_CYCLES = 200_000_000  # ~100 ms of device time at the H100's clocks
 
 
 def prompts() -> list[str]:
@@ -53,16 +59,30 @@ def prompts() -> list[str]:
     return out
 
 
-def timed(fn, sync: bool = True) -> tuple[float, float]:
-    """(min, median) ms of fn() over REPS runs after one warm run; with
-    `sync` False the clock stops before the synchronize (host dispatch)."""
+def timed(fn, mode: str = "sync") -> tuple[float, float]:
+    """(min, median) ms of fn() over REPS runs after one warm run. "sync":
+    host clock to the synchronize; "host": host clock to fn's return (host
+    dispatch); "device": CUDA events around fn() queued behind a ~100 ms
+    device sleep, so the host has queued all of fn's work before the
+    device reaches it (the device's critical path, the host's pace
+    excluded)."""
     fn()
     runs = []
     for _ in range(REPS):
         torch.cuda.synchronize()
+        if mode == "device":
+            torch.cuda._sleep(SLEEP_CYCLES)
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            runs.append(start.elapsed_time(end))
+            continue
         t0 = time.perf_counter()
         fn()
-        if sync:
+        if mode == "sync":
             torch.cuda.synchronize()
         runs.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
@@ -139,6 +159,27 @@ def main(argv=None) -> None:
         with pl._exact_f32():
             pipe.vocoder(piece)
 
+    bucket = pl._pick_mel_bucket(int(enc["dec_len_max"]))
+    whole_piece = mel[:, :bucket].contiguous()
+
+    def gen_whole():
+        with pl._exact_f32():
+            pipe.vocoder(whole_piece)
+
+    def in_turn(fn):
+        """fn with each stage's ResBlocks run one after another on one
+        stream, as before they had streams of their own."""
+        def fuse(blocks, x):
+            acc = blocks[0](x)
+            for block in blocks[1:]:
+                acc = acc + block(x)
+            return acc / len(blocks)
+
+        def run():
+            with mock.patch.object(Generator, "_fuse", staticmethod(fuse)):
+                return fn()
+        return run
+
     def first():
         g = pipe.stream(text, **kw)
         next(g)
@@ -146,6 +187,10 @@ def main(argv=None) -> None:
 
     def full():
         pipe.tts_single(text, denoise=0.005)
+
+    def uncached_tokenize():
+        phonetizer.clear_word_cache()
+        return m.tokenize(text)
 
     print(f"{torch.cuda.get_device_name(0)} | the first {n} prompts joined: "
           f"{len(text)} characters, {len(ids)} tokens, "
@@ -157,18 +202,25 @@ def main(argv=None) -> None:
             ("whole tts_single, graphs", full),
             ("whole tts_single, eager", eager(full))]
     rows = [
-        ("tokenize", lambda: m.tokenize(text), True),
-        ("encode, graph", encode, True),
-        ("encode, eager", eager(encode), True),
-        (f"decode at {bucket0}, graph", decode, True),
-        (f"decode at {bucket0}, eager", eager(decode), True),
-        (f"generator, {window} frames", gen, True),
-        (f"generator, {window} frames, host dispatch", gen, False),
+        ("tokenize", lambda: m.tokenize(text), "sync"),
+        ("tokenize, no word met before", uncached_tokenize, "sync"),
+        ("encode, graph", encode, "sync"),
+        ("encode, eager", eager(encode), "sync"),
+        (f"decode at {bucket0}, graph", decode, "sync"),
+        (f"decode at {bucket0}, eager", eager(decode), "sync"),
+        (f"generator, {window} frames", gen, "sync"),
+        (f"generator, {window} frames, host dispatch", gen, "host"),
+        (f"generator, {window} frames, device path", gen, "device"),
+        (f"generator, {window} frames, device path, in turn", in_turn(gen),
+         "device"),
+        (f"generator, {bucket} frames, device path", gen_whole, "device"),
+        (f"generator, {bucket} frames, device path, in turn",
+         in_turn(gen_whole), "device"),
         ("denoise, one window", lambda: denoiser.denoise(
-            wave, pipe.bias_spec, 0.005), True),
-    ] + [(name, fn, True) for name, fn in ends]
-    for name, fn, sync in rows:
-        lo, med = timed(fn, sync)
+            wave, pipe.bias_spec, 0.005), "sync"),
+    ] + [(name, fn, "sync") for name, fn in ends]
+    for name, fn, mode in rows:
+        lo, med = timed(fn, mode)
         print(f"    {name:42} min {lo:8.3f} ms  median {med:8.3f} ms")
     for name, fn in ends + [("encode, eager", eager(encode))]:
         n_k, dev_ms, host_ms, _ = profile(fn)

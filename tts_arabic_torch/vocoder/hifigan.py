@@ -9,7 +9,10 @@ dilations 1/3/5) averaged] -> leaky-relu -> conv_post k7 -> tanh
 Activations stay feature-last [B, T, C] between stages. Every ResBlock1
 runs through `ops.resblock.resblock1`, the hand-written CUDA kernel on a
 CUDA tensor; conv_pre, the upsamples and conv_post stay `F.conv1d` /
-`F.conv_transpose1d`, as the JAX package leaves them to XLA. Parameter
+`F.conv_transpose1d`, as the JAX package leaves them to XLA. On the card
+the ResBlocks of one stage run side by side, each on a stream of its own
+(`_side_streams`): a short window fills a tenth of the SMs with one
+ResBlock's time tiles. Parameter
 names follow the reference state dict with weight norm folded (the
 reference removes it at load, `vocoder/__init__.py:19`). Weights are cast
 to the input's dtype at each call, so one f32 module serves bf16 too.
@@ -27,6 +30,16 @@ from torch import nn
 
 from ..models.layers import conv1d_same
 from ..ops.resblock import LRELU_SLOPE, resblock1
+
+# per device, the streams a stage's ResBlocks run on (made at first use)
+_STREAMS: dict = {}
+
+
+def _side_streams(device: torch.device, n: int) -> list:
+    streams = _STREAMS.setdefault(device, [])
+    while len(streams) < n:
+        streams.append(torch.cuda.Stream(device))
+    return streams[:n]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,15 +102,30 @@ class ResBlock1(nn.Module):
             nn.Conv1d(channels, channels, kernel_size) for _ in dilations)
         self.convs2 = nn.ModuleList(
             nn.Conv1d(channels, channels, kernel_size) for _ in dilations)
+        self._cache = None
+
+    def _stacks(self) -> tuple:
+        """The convs' weights and biases stacked per pass (w1, b1, w2, b2),
+        kept while no parameter changes and no gradient is recorded: the
+        same tensors come back call after call, so `resblock1` can keep
+        their kernel layout too."""
+        params = list(self.parameters())
+        recording = (torch.is_grad_enabled()
+                     and any(p.requires_grad for p in params))
+        key = tuple((p.data_ptr(), p._version) for p in params)
+        if (not recording and self._cache is not None
+                and self._cache[0] == key):
+            return self._cache[1]
+        stack = lambda convs, attr: torch.stack(  # noqa: E731
+            [getattr(c, attr) for c in convs])
+        out = (stack(self.convs1, "weight"), stack(self.convs1, "bias"),
+               stack(self.convs2, "weight"), stack(self.convs2, "bias"))
+        self._cache = None if recording else (key, out)
+        return out
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [B, T, C] contiguous -> [B, T, C]."""
-        stack = lambda convs, attr: torch.stack(  # noqa: E731
-            [getattr(c, attr) for c in convs])
-        return resblock1(x, stack(self.convs1, "weight"),
-                         stack(self.convs1, "bias"),
-                         stack(self.convs2, "weight"),
-                         stack(self.convs2, "bias"), self.kernel_size,
+        return resblock1(x, *self._stacks(), self.kernel_size,
                          self.dilations)
 
 
@@ -147,16 +175,41 @@ class Generator(nn.Module):
             x = F.leaky_relu(x, LRELU_SLOPE)
             x = conv_transpose_1d(x, up.weight, up.bias, up.stride[0],
                                   up.padding[0]).contiguous()
-            acc = None
-            for j in range(n_k):
-                y = self.resblocks[i * n_k + j](x)
-                acc = y if acc is None else acc + y
-            x = acc / n_k
+            x = self._fuse(self.resblocks[i * n_k: (i + 1) * n_k], x)
         # final activation uses torch's default 0.01 slope in the reference
         # (models.py:123)
         x = F.leaky_relu(x, 0.01)
         x = conv1d_same(x, self.conv_post)
         return torch.tanh(x).squeeze(-1)
+
+    @staticmethod
+    def _fuse(blocks, x: torch.Tensor) -> torch.Tensor:
+        """Multi-receptive-field fusion: the blocks' outputs on x, summed
+        in order and averaged. On the card block 0 runs on the caller's
+        stream and block j > 0 on side stream j, forked from it and joined
+        back before the sum. The last block (k = 11 in the published
+        configs, the longest) is queued first, for when the host is behind.
+        Every allocation on a side stream happens after such a fork, so a
+        block the caller freed is reused there only after the caller's
+        last read of it; no `record_stream` is needed."""
+        if x.device.type != "cuda":
+            ys = [block(x) for block in blocks]
+        else:
+            main = torch.cuda.current_stream(x.device)
+            streams = _side_streams(x.device, len(blocks) - 1)
+            fork = main.record_event()
+            ys = [None] * len(blocks)
+            for j in reversed(range(1, len(blocks))):
+                streams[j - 1].wait_event(fork)
+                with torch.cuda.stream(streams[j - 1]):
+                    ys[j] = blocks[j](x)
+            ys[0] = blocks[0](x)
+            for side in streams:
+                main.wait_event(side.record_event())
+        acc = ys[0]
+        for y in ys[1:]:
+            acc = acc + y
+        return acc / len(blocks)
 
 
 def chunked_vocode(generator: Callable[[torch.Tensor], torch.Tensor],
