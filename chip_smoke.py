@@ -3,8 +3,9 @@ H100): builds the CUDA kernels from `tts_arabic_torch/csrc`, holds every
 kernel variant against its plain PyTorch version on the card, drives
 `FastPitch2Wave.tts()`, FastPitch training (`apps.train_fastpitch`), the
 serving surface (`stream()`, long-form, the vowelizers, the HTTP server
-and the inference CLI) and `Tacotron2Wave` (tts(), its decode, stream(),
-the CLI and the server) at full width, and checks what comes out.
+and the inference CLI), `Tacotron2Wave` (tts(), its decode, stream(),
+the CLI and the server), the int8 path of both pipelines and the Vocos
+vocoder at full width, and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -129,12 +130,52 @@ Phases, one line each (and a table for the kernel checks):
    weights' tts(speed=1.0); the server with a one-entry `tacotron2`
    registry after its warmup(): /api/tts, /api/tts/stream equal to the
    model's stream() (replaying the warmed graph), and a 400 for rate 1.25
+14. int8, FastPitch: FastPitch2Wave(quantize="int8"), phase 4's
+   configuration (bf16, seeded, duration bias +2.0 before the
+   constructor calibrates on the built-in texts: 54 MRF sites, 6 decoder
+   FFN layers), warmup(), three timed tts() of the 16 prompts (the launch
+   counters set to 0 just before the last: 0 wide, 3 narrow launches per
+   generator call, MAS 0), the real-time factor beside phase 4's; one
+   tts() under torch.profiler (idle share, device time), and every
+   `int8_conv_static` call of one more timed alone at its shape with CUDA
+   events (their share of that device time); every int8 conv of one tts()
+   against the float64 conv
+   of its int8 grids (equal int32 accumulators); tts_single x2 through the
+   narrow kernel against its plain ResBlocks with the same scales (SNR >
+   40 dB); the float path's waves (equal lengths, SNR for information);
+   calibrate_int8() after warmup(): the decoder graphs captured again in
+   int8, the graphed tts_single = the eager one, stream() against it (0
+   wide and 3 narrow launches a window, SNR > INT8_STREAM_SNR); then the
+   server with a `quantize: int8` bf16 entry from a `states.ckpt`
+   (/api/tts, /api/tts/stream = the model's stream()) and the inference
+   CLI with --quantize int8 on the 16 prompts (within 1 LSB of the served
+   model's tts())
+15. int8, Tacotron2: Tacotron2Wave(quantize="int8") in f32, its decodes
+   capped at T2_INT8_STEPS (1000; phase 12 runs 3000), the constructor's
+   calibration decodes included; warmup() of the two batches' graphs;
+   tts() of the 16 prompts (0 wide, 3 narrow launches per generator call;
+   lengths = the float vocoder's run of the same decodes, SNR for
+   information); the int8 generator against its plain ResBlocks (SNR >
+   40 dB); stream() after calibration against tts_single(
+   postprocess_mel=False) (SNR > INT8_T2_STREAM_SNR) and its first chunk's
+   time
+16. Vocos: FastPitch2Wave(vocoder_type="vocos") in bf16, CONFIG_22K (dim
+   512, 8 ConvNeXt layers of 1536), seeded, after warmup(): three timed
+   tts() of the 16 prompts (no ResBlock or MAS launch in the last), the
+   real-time factor beside phase 4's HiFi-GAN one, one under
+   torch.profiler; stream() of the first 4 prompts joined against
+   tts_single (its seam error and SNR > STREAM_BF16_SNR); the f32 module on
+   the card against the same weights on the CPU (within 1e-4 of the
+   peak); MelVocos (seeded) and Vocos.from_hparams from a YAML file of
+   nested mappings and a `.pth` (decode = the module within 1e-5;
+   copy-synthesis)
 
 Then nvidia-smi's line again, the kernels' JSON record (for each ResBlock
 variant its ms, plain_ms and bound_ms summed over the serving path's bf16
 launches, as timed in phase 3; for MAS the same sums over the training
-run's launches, as timed in phase 6; `tacotron2_launches`, each kernel's
-launches in phase 12's counted tts()), and last the result line. Any
+run's launches, as timed in phase 6; `tacotron2_launches` and
+`int8_launches`, each kernel's launches in phase 12's and phase 14's
+counted tts()), and last the result line. Any
 failure raises and the exit code is not 0; without a CUDA device the
 script exits 1 before printing any result.
 """
@@ -214,6 +255,19 @@ FIRST_CHUNK_SHARE = 0.75  # time to the first chunk / the whole tts_single
 MIX_SPEEDS = (1.0, 0.85, 1.1, 0.95, 1.25)
 MIX_PITCHES = (1.0, 1.1, 0.9)
 DIAC_TOL = 1e-5         # phase 10: |batched - single| class probability
+# the int8 and Vocos slice (phases 14-16): the int8 generator against its
+# plain ResBlocks with the same scales (only the narrow stage differs),
+# at phase 5's f32 gate
+INT8_SNR_GATE = 40.0
+# an int8 stream against its tts_single (SNR, dB), where a window's float
+# ops may round some int8 grid ties apart from the whole call's: bf16
+# FastPitch at the float bf16 stream's gate (read exact on an H100);
+# f32 Tacotron2 at 40 (47-51 dB on the CPU tests, 125 dB on an H100)
+INT8_STREAM_SNR = STREAM_BF16_SNR
+INT8_T2_STREAM_SNR = 40.0
+# phase 15 decodes this many steps (phase 12: 3000), the constructor's
+# calibration decodes included
+T2_INT8_STEPS = 1000
 
 
 def log(msg: str) -> None:
@@ -417,9 +471,9 @@ def generator_calls():
     calls = []
     forward = Generator.forward
 
-    def counted(self, mel):
+    def counted(self, mel, **kw):
         calls.append(tuple(mel.shape))
-        return forward(self, mel)
+        return forward(self, mel, **kw)
 
     with mock.patch.object(Generator, "forward", counted):
         yield calls
@@ -436,11 +490,12 @@ def warm_run(pipe, prompts: list[str]) -> list[tuple]:
 
 
 def phase_main_path(pipe, prompts: list[str], shapes: list[tuple],
-                    kernel_ms: float, smi: str) -> dict:
+                    kernel_ms: float, smi: str) -> tuple[dict, float]:
     """N_TIMED tts() calls of the prompts, each timed on the host clock:
     the first ones re-warm the allocator (phase 3 emptied its cache), the
     last is the main path's run, with the launch counters set to 0 just
-    before it and read just after."""
+    before it and read just after. -> (its launches, its real-time
+    factor)."""
     from tts_arabic_torch.ops import mas as mas_ops
     from tts_arabic_torch.ops import resblock as rb
     torch.cuda.reset_peak_memory_stats()
@@ -494,7 +549,7 @@ def phase_main_path(pipe, prompts: list[str], shapes: list[tuple],
         f"{calls} | launches {launches}, mas 0 | ResBlock kernels at these "
         f"shapes (phase 3): {kernel_ms:.1f} ms = {kernel_ms / 10 / wall:.0f}"
         f"% of the wall | peak memory {peak_gb:.2f} GB | {smi}")
-    return launches
+    return launches, audio_s / wall
 
 
 def _plain_f32(x, w1, b1, w2, b2, k, dilations):
@@ -1448,7 +1503,6 @@ def phase_apps(smi: str, tmp: pathlib.Path) -> None:
     from scipy.io import wavfile
 
     from tts_arabic_torch.apps import inference, server
-    from tts_arabic_torch.runtime.checkpoint import save_states
     prompts = load_prompts(N_PROMPTS)
     manager = server.TTSManager([{"name": "fastpitch-bf16",
                                   "type": "fastpitch",
@@ -1526,10 +1580,7 @@ def phase_apps(smi: str, tmp: pathlib.Path) -> None:
         f"chunk to the client {np.median([s[2] for s in spans]) * 1e3:.2f}"
         f" ms | {smi}")
 
-    ckpt = tmp / "states.ckpt"
-    save_states(ckpt, config={
-        "net_config": model.model.config.to_reference_net_config()},
-        model=model.model.model.state_dict())
+    ckpt = save_checkpoint(model, tmp)
     lst = tmp / "prompts.txt"
     lst.write_text("\n".join(prompts) + "\n", encoding="utf-8")
     out_dir = tmp / "samples"
@@ -1977,6 +2028,521 @@ def phase_tacotron2_apps(smi: str, tmp: pathlib.Path) -> None:
     torch.cuda.empty_cache()
 
 
+# ---- the int8 and Vocos slice -----------------------------------------------
+
+def duration_bias():
+    """FastPitchTTS objects built inside get make_pipe's +2.0 duration
+    bias at the end of their constructor, so a pipeline that calibrates in
+    its constructor (quantize="int8") decodes realistic lengths."""
+    from tts_arabic_torch.infer import pipeline as pl
+    init = pl.FastPitchTTS.__init__
+
+    def biased(self, *a, **kw):
+        init(self, *a, **kw)
+        with torch.no_grad():
+            self.model.duration_predictor.fc.bias.add_(2.0)
+    return mock.patch.object(pl.FastPitchTTS, "__init__", biased)
+
+
+@contextlib.contextmanager
+def float_path(pipe):
+    """pipe's float vocoder and decoder FFN while the block runs (its
+    int8 scales set aside; a float decode finds no int8 graph)."""
+    vocode = pipe._vocode
+    ffn = getattr(pipe, "_ffn_scales", None)
+    pipe._vocode = pipe.vocoder
+    if ffn is not None:
+        pipe._ffn_scales = None
+    try:
+        yield
+    finally:
+        pipe._vocode = vocode
+        if ffn is not None:
+            pipe._ffn_scales = ffn
+
+
+def oracle_checked(records: list):
+    """Every `ops.int8.int8_conv_acc` call inside also computed in float64
+    on the card from the same int8 grids (exact for integers below 2^53):
+    records (input shape, C_out, k, dilation, equal)."""
+    import torch.nn.functional as F
+
+    from tts_arabic_torch.ops import int8 as i8
+    acc_fn = i8.int8_conv_acc
+
+    def checked(xq, wq, k, d):
+        acc = acc_fn(xq, wq, k, d)
+        C = xq.shape[-1]
+        w = wq.reshape(wq.shape[0], k, C).permute(0, 2, 1).double()
+        ref = F.conv1d(xq.double().transpose(1, 2), w, dilation=d,
+                       padding=d * (k - 1) // 2).transpose(1, 2)
+        records.append((tuple(xq.shape), wq.shape[0], k, d,
+                        bool(torch.equal(acc.double(), ref))))
+        return acc
+    return mock.patch.object(i8, "int8_conv_acc", checked)
+
+
+def int8_conv_ms(fn) -> tuple[float, int]:
+    """Every `int8_conv_static` call of fn(), recorded (its input, weight,
+    bias, dilation and scale) and then timed alone at that shape with CUDA
+    events: (the sum of their device ms, the number of calls)."""
+    from tts_arabic_torch.ops import hifigan_int8 as h8
+    from tts_arabic_torch.ops import int8 as i8
+    conv, calls = i8.int8_conv_static, []
+
+    def recorded(*a):
+        calls.append(a)
+        return conv(*a)
+
+    with mock.patch.object(i8, "int8_conv_static", recorded), \
+            mock.patch.object(h8, "int8_conv_static", recorded):
+        fn()
+    total = sum(cuda_ms(lambda: conv(*a)) for a in calls)
+    return total, len(calls)
+
+
+def save_checkpoint(pipe, tmp: pathlib.Path) -> pathlib.Path:
+    """pipe's FastPitch as a `states.ckpt` of the trainer's format."""
+    from tts_arabic_torch.runtime.checkpoint import save_states
+    ckpt = tmp / "states.ckpt"
+    save_states(ckpt, config={
+        "net_config": pipe.model.config.to_reference_net_config()},
+        model=pipe.model.model.state_dict())
+    return ckpt
+
+
+def phase_int8(smi: str, bf16_rtf: float, tmp: pathlib.Path) -> dict:
+    """FastPitch2Wave(quantize="int8") at full width in bf16 (phase 4's
+    configuration, its constructor calibrating on the built-in texts),
+    after warmup(): three timed tts() of the 16 prompts (the launch
+    counters set to 0 just before the last and read just after), one
+    under torch.profiler (idle share) and the int8 convs of one more,
+    each timed alone at its shape (their share of device time); every
+    int8 conv of one tts() against the float64 conv of its grids; the
+    generator against its plain ResBlocks with the same scales; the float
+    path's waves for information; calibrate_int8() after warmup()
+    (graphed = eager int8, stream() against tts_single); then the
+    inference CLI with --quantize int8 and the server with a `quantize:
+    int8` entry. Returns the counted tts()'s ResBlock launches."""
+    from tts_arabic_torch.infer import FastPitch2Wave
+    from tts_arabic_torch.ops import mas as mas_ops
+    from tts_arabic_torch.ops import resblock as rb
+    from tts_arabic_torch.vocoder import hifigan
+    prompts = load_prompts(N_PROMPTS)
+    kw = dict(batch_size=BATCH, denoise=0.005)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with duration_bias():
+        pipe = FastPitch2Wave(seed=0, arabic_in=False, device="cuda",
+                              compute_dtype=torch.bfloat16, quantize="int8")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    sites, ffn = len(pipe._int8_scales), len(pipe._ffn_scales)
+    if (sites, ffn) != (54, pipe.model.config.dec_n_layers):
+        raise AssertionError(f"{sites} MRF sites, {ffn} FFN layers")
+    t0 = time.perf_counter()
+    pipe.warmup()
+    warm_s = time.perf_counter() - t0
+    walls = []
+    for _ in range(N_TIMED - 1):
+        t0 = time.perf_counter()
+        pipe.tts(prompts, **kw)
+        walls.append(time.perf_counter() - t0)
+    with generator_calls() as calls:
+        rb.reset_launches()
+        mas_ops.reset_launches()
+        t0 = time.perf_counter()
+        waves = pipe.tts(prompts, **kw)
+        walls.append(time.perf_counter() - t0)
+        launches = dict(rb.LAUNCHES)
+    expected = {"resblock1_wide": 0, "resblock1_narrow": 3 * len(calls)}
+    if launches != expected or mas_ops.LAUNCHES["mas"]:
+        raise AssertionError(f"int8 tts() launches {launches}, expected "
+                             f"{expected}")
+    audio_s = sum(w.size for w in waves) / pipe.sample_rate
+    rtf = audio_s / walls[-1]
+    with float_path(pipe):
+        flt = pipe.tts(prompts, **kw)
+    if [w.shape for w in waves] != [w.shape for w in flt]:
+        raise AssertionError("int8 and float tts() lengths differ")
+    snr_float = [snr_db(f, w) for f, w in zip(flt, waves)]
+    log(f"[14 int8] FastPitch2Wave(quantize='int8'), bf16, full width: "
+        f"constructor {build_s:.2f} s (calibration on the built-in texts "
+        f"included: {sites} MRF sites, {ffn} decoder FFN layers) | "
+        f"warmup() {warm_s:.2f} s | tts() of {len(prompts)} prompts, batch "
+        f"{BATCH}: {audio_s:.2f} s of audio in {walls[-1]:.3f} s = "
+        f"{rtf:.1f}x real time (phase 4, bf16: {bf16_rtf:.1f}x; the "
+        f"{N_TIMED} calls {', '.join(f'{w:.3f}' for w in walls)} s) | "
+        f"launches {launches} over {len(calls)} generator calls, mas 0 | "
+        f"SNR against the float path (information) min "
+        f"{min(snr_float):.2f}, median {np.median(snr_float):.2f} dB | "
+        f"{smi}")
+
+    got = profiled(lambda: pipe.tts(prompts, **kw))
+    conv_ms, n_convs = int8_conv_ms(lambda: pipe.tts(prompts, **kw))
+    if got is None:
+        log(f"[14 int8 profile] no device events recorded: idle share not "
+            f"measured | the {n_convs} int8 convs of one tts(), each timed "
+            f"alone at its shape: {conv_ms:.2f} ms | {smi}")
+    else:
+        wall, by_name, busy, n_ops = got
+        rb_ms = sum(v for n, v in by_name.items() if "resblock1" in n)
+        top = [(n, v) for n, v in by_name.most_common()
+               if "resblock1" not in n]
+        log(f"[14 int8 profile] tts() under torch.profiler: wall "
+            f"{wall * 1e3:.1f} ms, device busy {busy:.1f} ms (idle "
+            f"{100 * (1 - busy / 1e3 / wall):.1f}% of the wall), {n_ops} "
+            f"device ops summing {sum(by_name.values()):.1f} ms | narrow "
+            f"ResBlock kernel {rb_ms:.2f} ms | the {n_convs} int8 convs of "
+            f"one tts() (quantize, tap unfold, s8 GEMM, dequantize), each "
+            f"timed alone at its shape: {conv_ms:.2f} ms = "
+            f"{100 * conv_ms / sum(by_name.values()):.1f}% of the profiled "
+            f"device time | top ops: " + "; ".join(
+                f"{n} {v:.2f} ms" for n, v in top[:8]) + f" | {smi}")
+
+    records = []
+    with oracle_checked(records):
+        pipe.tts(prompts, **kw)
+    bad = [r for r in records if not r[-1]]
+    if bad or len(records) != len(calls) * (54 + 2 * ffn):
+        raise AssertionError(f"int8 convs vs the float64 oracle: "
+                             f"{len(records)} calls, unequal {bad[:4]}")
+    shapes = sorted({r[:4] for r in records})
+    kern = [pipe.tts_single(p, denoise=0.005) for p in prompts[:2]]
+    with mock.patch.object(hifigan, "resblock1", _plain_f32):
+        plain = [pipe.tts_single(p, denoise=0.005) for p in prompts[:2]]
+    snrs = [snr_db(b, a) for a, b in zip(kern, plain)]
+    log(f"[14 int8 checks] every int8 conv of one tts() ({len(records)} "
+        f"calls, {len(shapes)} shapes from {shapes[0]} to {shapes[-1]}): "
+        f"int32 accumulators = the float64 conv of the same grids | the "
+        f"int8 generator (narrow ResBlock kernel) against its plain "
+        f"ResBlocks in f32 with the same scales, tts_single x2: SNR "
+        f"{', '.join(f'{s:.2f}' for s in snrs)} dB (> {INT8_SNR_GATE}) | "
+        f"{smi}")
+    if not min(snrs) > INT8_SNR_GATE:
+        raise AssertionError(f"int8 generator vs plain: {snrs}")
+
+    t0 = time.perf_counter()
+    pipe.calibrate_int8()
+    torch.cuda.synchronize()
+    recal_s = time.perf_counter() - t0
+    keys = [k for k in pipe.model._graphs if k[0] == "decode"]
+    if not keys or not all(k[-1] for k in keys):
+        raise AssertionError("decoder graphs not captured again in int8")
+    text = prompts[0]
+    replays = pipe.model.graph_replays
+    graphed = pipe.tts_single(text, denoise=0.005)
+    replays = pipe.model.graph_replays - replays
+    with eager(pipe):
+        eager_wave = pipe.tts_single(text, denoise=0.005)
+    if replays != 2 or not np.array_equal(graphed, eager_wave):
+        raise AssertionError(f"graphed int8 tts_single ({replays} replays) "
+                             "differs from the eager one")
+    rb.reset_launches()
+    chunks = list(pipe.stream(text, chunk_frames=STREAM_CHUNK,
+                              overlap=STREAM_OVERLAP, denoise=0.005))
+    stream_launches = dict(rb.LAUNCHES)
+    streamed = np.concatenate(chunks)
+    if streamed.shape != graphed.shape or stream_launches != {
+            "resblock1_wide": 0, "resblock1_narrow": 3 * len(chunks)}:
+        raise AssertionError(f"int8 stream: {streamed.shape} vs "
+                             f"{graphed.shape}, launches {stream_launches}")
+    s_snr = snr_db(graphed, streamed)
+    log(f"[14 int8 recalibrate] warmup() then calibrate_int8(): "
+        f"{recal_s:.2f} s, {len(pipe.model._graphs)} graphs captured again "
+        f"({len(keys)} int8 decoders) | graphed tts_single = the eager int8 "
+        f"call ({replays} replays) | stream() of prompt 0, {len(chunks)} "
+        f"chunks, launches {stream_launches}: SNR {s_snr:.2f} dB against "
+        f"tts_single (> {INT8_STREAM_SNR}), max |diff| "
+        f"{np.abs(streamed - graphed).max():.3e} of peak "
+        f"{np.abs(graphed).max():.3e} | {smi}")
+    if not s_snr > INT8_STREAM_SNR:
+        raise AssertionError(f"int8 stream SNR {s_snr:.2f}")
+    ckpt = save_checkpoint(pipe, tmp)
+    del pipe
+    torch.cuda.empty_cache()
+    phase_int8_apps(smi, ckpt, prompts, tmp)
+    return launches
+
+
+def phase_int8_apps(smi: str, ckpt: pathlib.Path, prompts: list[str],
+                    tmp: pathlib.Path) -> None:
+    """The server with one `quantize: int8` bf16 entry from `ckpt`, after
+    its warmup(): /api/tts writes a wav and /api/tts/stream gives the
+    model's own stream(); then the inference CLI with --quantize int8 on
+    the 16 prompts, within 1 LSB of the served model's tts()."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from scipy.io import wavfile
+
+    from tts_arabic_torch.apps import inference, server
+    manager = server.TTSManager([{
+        "name": "fastpitch-int8", "type": "fastpitch", "quantize": "int8",
+        "compute_dtype": "bfloat16", "checkpoint": str(ckpt)}],
+        device="cuda")
+    _, model = manager.models[0]
+    if model._int8_scales is None or model._ffn_scales is None:
+        raise AssertionError("the registry's int8 entry is not int8")
+    warm_s = manager.warmup()
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), server.make_handler(manager))
+    port = httpd.server_address[1]
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    text = prompts[1]
+    try:
+        conn, resp = _post(port, "/api/tts", {"buckw": text})
+        waves = json.loads(resp.read())["waves"]
+        conn.close()
+        if resp.status != 200:
+            raise AssertionError(f"/api/tts: {resp.status}")
+        t0 = time.perf_counter()
+        conn, resp = _post(port, "/api/tts/stream",
+                           {"buckw": text, "rate": 1.1})
+        head = resp.read(2)
+        ttfb = time.perf_counter() - t0
+        got = head + resp.read()
+        conn.close()
+        want = b"".join(np.asarray(c).tobytes() for c in model.stream(
+            text, speed=1.1, denoise=0.005, out_int16=True))
+        if resp.status != 200 or got != want:
+            raise AssertionError(f"int8 /api/tts/stream: {resp.status}, "
+                                 f"{len(got)} vs {len(want)} bytes")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    lst = tmp / "prompts.txt"
+    lst.write_text("\n".join(prompts) + "\n", encoding="utf-8")
+    out_dir = tmp / "samples_int8"
+    t0 = time.perf_counter()
+    inference.main(["--list", str(lst), "--buckwalter", "--checkpoint",
+                    str(ckpt), "--out-dir", str(out_dir), "--batch-size",
+                    str(BATCH), "--quantize", "int8"])
+    cli_s = time.perf_counter() - t0
+    want = model.tts(prompts, batch_size=BATCH, denoise=0.005)
+    worst = 0
+    for i, w in enumerate(want):
+        _, got_w = wavfile.read(out_dir / f"wave_{i:04d}.wav")
+        w16 = (np.clip(w, -1.0, 1.0) * 32767.0).astype(np.int16)
+        if got_w.shape != w16.shape:
+            raise AssertionError(f"int8 CLI wave {i}: {got_w.shape} vs "
+                                 f"{w16.shape}")
+        worst = max(worst, int(np.abs(got_w.astype(np.int32) - w16).max()))
+    if worst > 1:
+        raise AssertionError(f"int8 CLI waves off by {worst} LSB")
+    log(f"[14 int8 apps] server with a `quantize: int8` bf16 entry: "
+        f"warmup() {warm_s:.2f} s (its calibration was at load) | /api/tts "
+        f"wrote {waves[0]['url']} | /api/tts/stream at rate 1.1 = the "
+        f"model's stream(), {len(got)} bytes, first byte "
+        f"{ttfb * 1e3:.1f} ms | CLI --quantize int8 on {len(prompts)} "
+        f"prompts: {cli_s:.2f} s wall (load and calibration included), wavs"
+        f" within {worst} LSB of the served model's tts() | {smi}")
+    del manager, model
+    torch.cuda.empty_cache()
+
+
+def phase_tacotron2_int8(smi: str) -> None:
+    """Tacotron2Wave(quantize="int8") at full width in f32, its decodes
+    capped at T2_INT8_STEPS (the constructor's calibration decodes
+    included): warmup() of the two batches' decode graphs, tts() of the
+    16 prompts (0 wide, 3 narrow launches per generator call), against the
+    float vocoder's run of the same decodes (equal lengths; SNR for
+    information), the int8 generator against its plain ResBlocks, and
+    stream() after calibration against its own int8 tts_single."""
+    from tts_arabic_torch.infer import tacotron_pipeline as tp
+    from tts_arabic_torch.ops import resblock as rb
+    from tts_arabic_torch.vocoder import hifigan
+    set_tf32(False)
+    init = tp.Tacotron2TTS.__init__
+
+    def capped(self, *a, **kw):
+        kw.setdefault("decoder_max_step", T2_INT8_STEPS)
+        init(self, *a, **kw)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(tp.Tacotron2TTS, "__init__", capped):
+        pipe = t2_pipe(quantize="int8")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if len(pipe._int8_scales) != 54:
+        raise AssertionError(f"{len(pipe._int8_scales)} MRF sites")
+    prompts = load_prompts(N_PROMPTS)
+    buckets = sorted({b[0].shape[1] for b in t2_batches(pipe, prompts)})
+    pipe.warmup(batch_sizes=(BATCH,), text_buckets=tuple(buckets))
+    kw = dict(batch_size=BATCH, denoise=0.005)
+    pipe.tts(prompts, **kw)
+    with generator_calls() as calls:
+        rb.reset_launches()
+        t0 = time.perf_counter()
+        waves = pipe.tts(prompts, **kw)
+        wall = time.perf_counter() - t0
+        launches = dict(rb.LAUNCHES)
+    if launches != {"resblock1_wide": 0,
+                    "resblock1_narrow": 3 * len(calls)}:
+        raise AssertionError(f"Tacotron2 int8 launches {launches}")
+    with float_path(pipe):
+        flt = pipe.tts(prompts, **kw)
+    if [w.shape for w in waves] != [w.shape for w in flt]:
+        raise AssertionError("Tacotron2 int8 and float lengths differ")
+    snr_float = [snr_db(f, w) for f, w in zip(flt, waves)]
+    audio_s = sum(w.size for w in waves) / pipe.sample_rate
+    short = min(prompts, key=len)
+    kern = pipe.tts_single(short, denoise=0.005)
+    with mock.patch.object(hifigan, "resblock1", rb.resblock1_plain):
+        plain = pipe.tts_single(short, denoise=0.005)
+    p_snr = snr_db(plain, kern)
+    full = pipe.tts_single(short, denoise=0.005, postprocess_mel=False)
+    t0 = time.perf_counter()
+    gen = pipe.stream(short, denoise=0.005)
+    chunks = [next(gen)]
+    first_s = time.perf_counter() - t0
+    chunks += list(gen)
+    streamed = np.concatenate(chunks)
+    if streamed.shape != full.shape:
+        raise AssertionError(f"Tacotron2 int8 stream {streamed.shape} vs "
+                             f"{full.shape}")
+    s_snr = snr_db(full, streamed)
+    log(f"[15 tacotron2 int8] Tacotron2Wave(quantize='int8'), f32, full "
+        f"width, decoder_max_step {T2_INT8_STEPS} (reduced from 3000; the "
+        f"random gate never fires): constructor {build_s:.2f} s "
+        f"(calibration decodes included, 54 MRF sites) | tts() of "
+        f"{len(prompts)} prompts, batch {BATCH}: {audio_s:.2f} s of audio "
+        f"in {wall:.3f} s = {audio_s / wall:.1f}x real time | launches "
+        f"{launches} over {len(calls)} generator calls | lengths = the "
+        f"float vocoder's run; SNR against it (information) min "
+        f"{min(snr_float):.2f} dB | the int8 generator (narrow kernel) "
+        f"against its plain ResBlocks, same scales: SNR {p_snr:.2f} dB "
+        f"(> {INT8_SNR_GATE}) | stream() of the shortest prompt after "
+        f"calibration, {len(chunks)} chunks, first in {first_s * 1e3:.1f} "
+        f"ms: SNR {s_snr:.2f} dB against tts_single(postprocess_mel=False) "
+        f"(> {INT8_T2_STREAM_SNR}), max |diff| "
+        f"{np.abs(streamed - full).max():.3e} | {smi}")
+    if not p_snr > INT8_SNR_GATE or not s_snr > INT8_T2_STREAM_SNR:
+        raise AssertionError(f"Tacotron2 int8: plain SNR {p_snr:.2f}, "
+                             f"stream SNR {s_snr:.2f}")
+    del pipe
+    torch.cuda.empty_cache()
+
+
+def vocos_yaml(n_mels: int, dim: int, layers: int) -> str:
+    """A reference-format Vocos hparams file (nested block mappings) of
+    CONFIG_22K's shapes."""
+    return (
+        "feature_extractor:\n"
+        "  class_path: vocos.feature_extractors.MelSpectrogramFeatures\n"
+        "  init_args:\n    sample_rate: 22050\n    n_fft: 1024\n"
+        f"    hop_length: 256\n    n_mels: {n_mels}\n    padding: same\n"
+        "backbone:\n  class_path: vocos.models.VocosBackbone\n"
+        f"  init_args:\n    input_channels: {n_mels}\n    dim: {dim}\n"
+        f"    intermediate_dim: {3 * dim}\n    num_layers: {layers}\n"
+        "head:\n  class_path: vocos.heads.ISTFTHead\n"
+        f"  init_args:\n    dim: {dim}\n    n_fft: 1024\n"
+        "    hop_length: 256\n    padding: same\n")
+
+
+def phase_vocos(smi: str, hifigan_rtf: float, tmp: pathlib.Path) -> None:
+    """FastPitch2Wave(vocoder_type="vocos") in bf16 (CONFIG_22K: dim 512,
+    8 ConvNeXt layers of 1536; seeded), after warmup(): three timed tts()
+    of the 16 prompts (no ResBlock or MAS launch in the last), one under
+    torch.profiler; stream() against tts_single; the f32 Vocos on the card
+    against the same weights on the CPU; MelVocos, and Vocos.from_hparams
+    round-tripped through a YAML file and a `.pth`."""
+    from tts_arabic_torch.infer import FastPitch2Wave
+    from tts_arabic_torch.ops import mas as mas_ops
+    from tts_arabic_torch.ops import resblock as rb
+    from tts_arabic_torch.vocoder import vocos as pv
+    prompts = load_prompts(N_PROMPTS)
+    kw = dict(batch_size=BATCH, denoise=0.005)
+    pipe = FastPitch2Wave(seed=0, arabic_in=False, device="cuda",
+                          compute_dtype=torch.bfloat16, vocoder_type="vocos")
+    with torch.no_grad():
+        pipe.model.model.duration_predictor.fc.bias.add_(2.0)
+    t0 = time.perf_counter()
+    pipe.warmup()
+    warm_s = time.perf_counter() - t0
+    walls = []
+    for i in range(N_TIMED):
+        if i == N_TIMED - 1:
+            rb.reset_launches()
+            mas_ops.reset_launches()
+        t0 = time.perf_counter()
+        waves = pipe.tts(prompts, **kw)
+        walls.append(time.perf_counter() - t0)
+    launched = sum(rb.LAUNCHES.values()) + mas_ops.LAUNCHES["mas"]
+    if launched:
+        raise AssertionError(f"Vocos tts() launched {launched} kernels")
+    mels = pipe.model.ttmel(prompts, batch_size=BATCH)
+    for i, (w, m) in enumerate(zip(waves, mels)):
+        if not (np.isfinite(w).all() and w.size == m.shape[1] * 256):
+            raise AssertionError(f"Vocos wave {i}: {w.size} samples")
+    audio_s = sum(w.size for w in waves) / pipe.sample_rate
+    got = profiled(lambda: pipe.tts(prompts, **kw))
+    prof = ("no device events recorded, breakdown not measured"
+            if got is None else
+            f"under torch.profiler: wall {got[0] * 1e3:.1f} ms, device busy"
+            f" {got[2]:.1f} ms (idle {100 * (1 - got[2] / 1e3 / got[0]):.1f}"
+            f"% of the wall), {got[3]} device ops, top: " + "; ".join(
+                f"{n} {v:.2f} ms" for n, v in got[1].most_common(6)))
+    log(f"[16 vocos] FastPitch2Wave(vocoder_type='vocos'), bf16, CONFIG_22K "
+        f"(dim 512, 8 ConvNeXt layers, intermediate 1536), seeded: warmup() "
+        f"{warm_s:.2f} s | tts() of {len(prompts)} prompts, batch {BATCH}: "
+        f"{audio_s:.2f} s of audio in {walls[-1]:.3f} s = "
+        f"{audio_s / walls[-1]:.1f}x real time (HiFi-GAN, phase 4: "
+        f"{hifigan_rtf:.1f}x; the {N_TIMED} calls "
+        f"{', '.join(f'{w:.3f}' for w in walls)} s) | ResBlock and MAS "
+        f"launches 0 | {prof} | {smi}")
+
+    text = " ".join(prompts[:N_STREAM_PROMPTS])
+    full = pipe.tts_single(text, denoise=0.005)
+    chunks = list(pipe.stream(text, chunk_frames=STREAM_CHUNK,
+                              overlap=STREAM_OVERLAP, denoise=0.005))
+    streamed = np.concatenate(chunks)
+    if streamed.shape != full.shape:
+        raise AssertionError(f"Vocos stream {streamed.shape} vs "
+                             f"{full.shape}")
+    seam = np.abs(streamed - full).max()
+    v_snr = snr_db(full, streamed)
+
+    set_tf32(False)
+    module = pipe.vocoder
+    cpu = copy.deepcopy(module).cpu()
+    mel = torch.from_numpy(np.ascontiguousarray(mels[0].T[None]))
+    with torch.no_grad():
+        want = cpu(mel, cpu.bias_vector(), 0.005)
+        card = module(mel.cuda(), pipe.bias_spec, 0.005).cpu()
+    f32_err = float((card - want).abs().max() / want.abs().max())
+    mv = pv.MelVocos(seed=1, device="cuda")
+    mv_wave = mv(mels[0], denoise=0.005)
+    yaml_path = tmp / "vocos.yaml"
+    yaml_path.write_text(vocos_yaml(80, 512, 8))
+    pth = tmp / "vocos.pth"
+    torch.save(module.state_dict(), pth)
+    voc = pv.Vocos.from_hparams(yaml_path, pth, device="cuda")
+    with torch.no_grad():
+        direct = module(mel.cuda()).cpu().numpy()
+    decoded = voc.decode(mel.transpose(1, 2).numpy())
+    rt_err = float(np.abs(decoded - direct).max() / np.abs(direct).max())
+    copy_wave = voc(full[None, : 256 * 200])
+    log(f"[16 vocos checks] stream() of the first {N_STREAM_PROMPTS} prompts"
+        f" joined, {len(chunks)} chunks of {STREAM_CHUNK} (overlap "
+        f"{STREAM_OVERLAP}) against tts_single: max |diff| {seam:.3e} of "
+        f"peak {np.abs(full).max():.3e}, SNR {v_snr:.2f} dB (> "
+        f"{STREAM_BF16_SNR}) | f32 Vocos on the card vs the CPU, same "
+        f"weights, {tuple(mel.shape)}: max err {f32_err:.2e} of the peak "
+        f"(<= 1e-4) | MelVocos (seeded) -> {mv_wave.shape}, finite "
+        f"{bool(np.isfinite(mv_wave).all())} | Vocos.from_hparams (YAML "
+        f"with nested mappings + .pth): decode = the module within "
+        f"{rt_err:.2e}; copy-synthesis -> {copy_wave.shape} | {smi}")
+    if not (v_snr > STREAM_BF16_SNR and f32_err <= 1e-4 and rt_err <= 1e-5
+            and np.isfinite(mv_wave).all() and np.isfinite(copy_wave).all()
+            and mv_wave.shape == (1, mels[0].shape[1] * 256)):
+        raise AssertionError("Vocos checks failed")
+    del pipe, voc, mv
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs on the GPU",
@@ -1993,8 +2559,8 @@ def main() -> int:
     pipe = make_pipe(torch.bfloat16)
     shapes = warm_run(pipe, prompts)
     summary = phase_kernel_checks([f for _, f, _ in shapes])
-    launches = phase_main_path(pipe, prompts, shapes,
-                               sum(s["ms"] for s in summary.values()), smi)
+    launches, bf16_rtf = phase_main_path(
+        pipe, prompts, shapes, sum(s["ms"] for s in summary.values()), smi)
     profile_tts(pipe, prompts, smi)
     del pipe
     phase_generator_check(smi, torch.float32)
@@ -2018,6 +2584,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="smoke_t2_apps_",
                                      dir=build_dir) as tmp:
         phase_tacotron2_apps(smi, pathlib.Path(tmp))
+    with tempfile.TemporaryDirectory(prefix="smoke_int8_",
+                                     dir=build_dir) as tmp:
+        int8_launches = phase_int8(smi, bf16_rtf, pathlib.Path(tmp))
+    phase_tacotron2_int8(smi)
+    with tempfile.TemporaryDirectory(prefix="smoke_vocos_",
+                                     dir=build_dir) as tmp:
+        phase_vocos(smi, bf16_rtf, pathlib.Path(tmp))
     replaces = {
         "resblock1_wide": "tts_arabic_tpu/ops/hifigan_pallas.py:153",
         "resblock1_narrow": "tts_arabic_tpu/ops/hifigan_pallas.py:547",
@@ -2033,7 +2606,8 @@ def main() -> int:
             "bound_by": ("operations" if s["t_ops"] >= s["t_bytes"]
                          else "bytes"),
             "library_ms": None,
-            "tacotron2_launches": t2_launches[kname]})
+            "tacotron2_launches": t2_launches[kname],
+            "int8_launches": int8_launches[kname]})
     # one MAS launch per training step and validation batch, each timed at
     # its own batch's shape in phase 6
     kernels.append({
@@ -2044,7 +2618,8 @@ def main() -> int:
         "max_abs_err": mas["max_abs_err"],
         **{k: sum(r[k] for r in mas["rows"])
            for k in ("ms", "plain_ms", "bound_ms")},
-        "bound_by": "bytes", "library_ms": None, "tacotron2_launches": 0})
+        "bound_by": "bytes", "library_ms": None, "tacotron2_launches": 0,
+        "int8_launches": 0})
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -99,6 +99,53 @@ def test_registry_and_basic_config_readers_match_pyyaml(tmp_path):
         jax_config.DEFAULT_BASIC_CONFIG
 
 
+VOCOS_HPARAMS = """\
+# a reference Vocos config.yaml: nested block mappings
+feature_extractor:
+  class_path: vocos.feature_extractors.MelSpectrogramFeatures
+  init_args:
+    sample_rate: 24000
+    n_fft: 1024
+    hop_length: 256
+    n_mels: 100
+    padding: center
+backbone:
+  class_path: vocos.models.VocosBackbone
+  init_args:
+    input_channels: 100
+    dim: 512
+    intermediate_dim: 1536
+    num_layers: 8
+    layer_scale_init_value:
+    adanorm_num_embeddings: null
+head:   # the ISTFT head
+  class_path: vocos.heads.ISTFTHead
+  init_args:
+    dim: 512
+    n_fft: 1024
+    hop_length: 256
+    padding: 'same'
+"""
+
+
+def test_yaml_reader_nested_mappings_match_pyyaml(tmp_path):
+    """Nested block mappings (a Vocos hparams file), as written by hand
+    and by PyYAML, read as PyYAML's safe_load reads them (the flat
+    configs/*.yaml: test_torch_port_data.py); what the reader does not
+    take raises."""
+    want = yaml.safe_load(VOCOS_HPARAMS)
+    assert want["backbone"]["init_args"]["layer_scale_init_value"] is None
+    assert port_config.parse_yaml(VOCOS_HPARAMS) == want
+    assert port_config.parse_yaml(yaml.safe_dump(want)) == want
+    path = tmp_path / "config.yaml"
+    path.write_text(VOCOS_HPARAMS)
+    assert port_config.load_yaml(path) == want
+    for bad in ("a:\n  - 1\n", "a:\n  b: 1\n c: 2\n", "a:\n\tb: 1\n",
+                "  a:\n    b: 1\n", "- a:\n    b: 1\n  c:\n   - 2\n"):
+        with pytest.raises(ValueError):
+            port_config.parse_yaml(bad)
+
+
 def test_peak_normalize_matches_jax():
     x = np.random.default_rng(0).standard_normal(1000).astype(np.float32)
     np.testing.assert_array_equal(peak_normalize(x, 0.99),
@@ -171,17 +218,135 @@ def test_inference_cli_on_the_cpu(weights, tmp_path):
     (["--model", "tacotron2", "--quantize", "int8"], "Tacotron2"),
     (["--quantize", "int8"], "int8")])
 def test_unported_options_raise(argv, match, monkeypatch):
-    """int8 serving is refused before anything is loaded, for either model,
-    in the CLI and the registry."""
+    """int8 serving, refused until the int8 path was ported, now reaches
+    the pipeline of either model from the CLI and the registry (which
+    still need a card unless told otherwise); an unknown model type is
+    refused."""
+    import tts_arabic_torch.infer as infer
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         inference.main(argv)
-    entry = {"name": "x", "quantize": "int8",
-             "type": argv[1] if argv[0] == "--model" else "fastpitch"}
-    with pytest.raises(NotImplementedError, match=match):
+    kind = argv[1] if argv[0] == "--model" else "fastpitch"
+    entry = {"name": "x", "quantize": "int8", "type": kind}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        server.TTSManager([entry])
+    built = []
+
+    class Built(Exception):
+        pass
+
+    def recorder(cls):
+        def build(*a, **kw):
+            built.append(f"{cls.__name__} quantize={kw['quantize']}")
+            raise Built
+        return build
+    for name in ("FastPitch2Wave", "Tacotron2Wave"):
+        monkeypatch.setattr(infer, name, recorder(getattr(infer, name)))
+    with pytest.raises(Built):
+        inference.main(argv + ["--device", "cpu"])
+    with pytest.raises(Built):
         server.TTSManager([entry], device="cpu")
+    assert len(built) == 2 and built[0] == built[1]
+    assert match in built[0] and built[0].endswith("quantize=int8")
     with pytest.raises(ValueError, match="model type"):
         server.TTSManager([{"name": "x", "type": "vocos"}], device="cpu")
+
+
+@pytest.fixture(scope="module")
+def int8_weights(tmp_path_factory):
+    """A vocoder with a stage the int8 path claims (C = 64), and a small
+    Tacotron2 whose decodes the apps build are capped (`t2_capped`)."""
+    from torch_port_weights import (SMALL_TACOTRON2, write_int8_vocoder,
+                                    write_tacotron2_weights)
+    from tts_arabic_torch.models.tacotron2 import Tacotron2Config
+    d = tmp_path_factory.mktemp("apps_int8")
+    voc, voc_cfg = write_int8_vocoder(d, gain=300.0)
+    t2 = write_tacotron2_weights(d, Tacotron2Config(**SMALL_TACOTRON2))
+    return dict(vocoder_sd=voc, vocoder_config=voc_cfg, tacotron2=t2)
+
+
+@pytest.fixture
+def t2_capped(monkeypatch):
+    """Every Tacotron2 decode the apps run stops at 96 steps (the seeded
+    gate stays shut), the constructor's calibration decode included."""
+    from tts_arabic_torch.infer import tacotron_pipeline
+    init = tacotron_pipeline.Tacotron2TTS.__init__
+
+    def capped(self, *a, **kw):
+        init(self, *a, **kw)
+        self.decoder_max_step = 96
+    monkeypatch.setattr(tacotron_pipeline.Tacotron2TTS, "__init__", capped)
+
+
+@pytest.mark.parametrize("model", ["fastpitch", "tacotron2"])
+def test_inference_cli_quantize_int8(model, weights, int8_weights, t2_capped,
+                                     tmp_path):
+    """--quantize int8 on the CPU writes the int8 pipeline's waves (bf16
+    for FastPitch, f32 for Tacotron2, as without it)."""
+    from tts_arabic_torch.infer import Tacotron2Wave
+    lst = tmp_path / "list.txt"
+    lst.write_text("\n".join(PROMPTS[:2]) + "\n", encoding="utf-8")
+    checkpoint = (weights["checkpoint"] if model == "fastpitch"
+                  else int8_weights["tacotron2"])
+    voc = dict(vocoder_sd=int8_weights["vocoder_sd"],
+               vocoder_config=int8_weights["vocoder_config"])
+    out = tmp_path / "out"
+    inference.main([
+        "--model", model, "--list", str(lst), "--checkpoint", checkpoint,
+        "--vocoder-sd", voc["vocoder_sd"], "--vocoder-config",
+        voc["vocoder_config"], "--buckwalter", "--quantize", "int8",
+        "--batch-size", "2", "--out-dir", str(out), "--device", "cpu"])
+    if model == "fastpitch":
+        pipe = FastPitch2Wave(checkpoint, arabic_in=False, device="cpu",
+                              compute_dtype=torch.bfloat16,
+                              quantize="int8", **voc)
+        assert len(pipe._ffn_scales) == 2
+    else:
+        pipe = Tacotron2Wave(checkpoint, arabic_in=False, device="cpu",
+                             quantize="int8", **voc)
+    assert len(pipe._int8_scales) == 18
+    want = pipe.tts(PROMPTS[:2], speed=1.0, denoise=0.005, batch_size=2)
+    for i, w in enumerate(want):
+        with wave_mod.open(str(out / f"wave_{i:04d}.wav")) as f:
+            got = np.frombuffer(f.readframes(f.getnframes()), np.int16)
+        assert len(got) >= 256
+        np.testing.assert_array_equal(
+            got, (np.clip(w, -1.0, 1.0) * 32767.0).astype(np.int16))
+
+
+def test_server_registry_quantize_int8(weights, int8_weights, t2_capped):
+    """`quantize: int8` entries load calibrated int8 pipelines of both
+    types; /api/tts's path and the stream serve them."""
+    registry = server.parse_yaml(
+        "- name: fp8\n  type: fastpitch\n  quantize: int8\n"
+        "  compute_dtype: bfloat16\n"
+        f"  checkpoint: {weights['checkpoint']}\n"
+        f"  vocoder_sd: {int8_weights['vocoder_sd']}\n"
+        f"  vocoder_config: {int8_weights['vocoder_config']}\n"
+        "- name: t28\n  type: tacotron2\n  quantize: int8\n"
+        f"  checkpoint: {int8_weights['tacotron2']}\n"
+        f"  vocoder_sd: {int8_weights['vocoder_sd']}\n"
+        f"  vocoder_config: {int8_weights['vocoder_config']}\n")
+    manager = server.TTSManager(registry, device="cpu")
+    (_, fp), (_, t2) = manager.models
+    assert len(fp._int8_scales) == len(t2._int8_scales) == 18
+    assert fp._ffn_scales is not None
+    assert fp.compute_dtype == torch.bfloat16
+    direct = FastPitch2Wave(weights["checkpoint"], arabic_in=False,
+                            device="cpu", compute_dtype=torch.bfloat16,
+                            quantize="int8",
+                            vocoder_sd=int8_weights["vocoder_sd"],
+                            vocoder_config=int8_weights["vocoder_config"])
+    assert direct._int8_scales == fp._int8_scales
+    text = PROMPTS[2]
+    outputs = manager.tts(text, denoise=0.005)
+    assert [o["model"] for o in outputs] == ["fp8", "t28"]
+    name, rate, chunks = manager.stream(text)
+    got = np.frombuffer(b"".join(chunks), np.int16)
+    want = np.concatenate(list(direct.stream(text, denoise=0.005,
+                                             out_int16=True)))
+    assert name == "fp8" and rate == 22050
+    np.testing.assert_array_equal(got, want)
 
 
 def test_cli_and_server_need_a_card_by_default(monkeypatch):

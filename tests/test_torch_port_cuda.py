@@ -556,3 +556,131 @@ def test_tacotron2_tts_runs_the_resblock_kernels(cuda):
     for k, p in zip(kern, plain):
         assert k.shape == p.shape and len(k) > 0
         assert _snr_db(p, k) > 40.0
+
+
+# ---- the int8 path and Vocos ------------------------------------------------
+
+def _fake_quant_oracle(y, weight, bias, dilation, ascale):
+    """The int8 conv in float64 from its grids: (the exact int32
+    accumulators as f64, acc * (ascale * wscale) + bias)."""
+    from tts_arabic_torch.ops import int8 as i8
+    xq = i8.quantize(y, ascale).double()
+    wq, wscale = i8.weight_qparams(weight)
+    k = weight.shape[-1]
+    acc = torch.nn.functional.conv1d(
+        xq.transpose(1, 2), wq.double(), dilation=dilation,
+        padding=dilation * (k - 1) // 2).transpose(1, 2)
+    scale = torch.as_tensor(ascale, dtype=torch.float32).double()
+    return acc, acc * (scale * wscale.double()) + bias.double()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("C_in,C_out,k,d,T", [
+    (256, 256, 3, 5, 1280), (256, 256, 11, 3, 1280), (128, 128, 7, 1, 2560),
+    (64, 64, 11, 5, 5120), (384, 1536, 3, 1, 512), (1536, 384, 3, 1, 512),
+    (64, 64, 3, 1, 2)], ids=["s0k3", "s0k11", "s1k7", "s2k11", "ffn1",
+                             "ffn2", "16rows"])
+def test_int8_conv_matches_the_oracle(cuda, C_in, C_out, k, d, T, batch):
+    """`torch._int_mm` on the card at the MRF stages' shapes (one streamed
+    window's at B = 1, a tts() batch's at B = 8) and the decoder FFN's:
+    the int32 accumulators equal the float64 conv of the grids exactly,
+    the outputs within 1e-6 of its peak, for a python-float scale and an
+    f32 tensor one, in f32 and bf16 inputs; and fewer than 17 rows."""
+    from tts_arabic_torch.ops import int8 as i8
+    g = torch.Generator().manual_seed(C_in + k + d)
+    y = (torch.randn((batch, T, C_in), generator=g) * 2).to(cuda)
+    weight = (torch.randn((C_out, C_in, k), generator=g)
+              / (k * C_in) ** 0.5).to(cuda)
+    bias = (0.1 * torch.randn((C_out,), generator=g)).to(cuda)
+    amax = float(y.abs().max())
+    for ascale in (amax / 127.0, torch.tensor(amax / 127.0, device=cuda)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = y.to(dtype)
+            acc_ref, out_ref = _fake_quant_oracle(x.float(), weight, bias,
+                                                  d, ascale)
+            wq, _ = i8.gemm_weight(weight)
+            acc = i8.int8_conv_acc(i8.quantize(x, ascale), wq, k, d)
+            assert acc.dtype == torch.int32
+            assert torch.equal(acc.double(), acc_ref)
+            out = i8.int8_conv_static(x, weight, bias, d, ascale)
+            assert out.dtype == dtype
+            tol = 1e-6 if dtype == torch.float32 else 8e-3
+            err = (out.double() - out_ref).abs().max() / out_ref.abs().max()
+            assert err <= tol, (dtype, float(err))
+
+
+@pytest.mark.cuda
+def test_int8_generator_launches_the_narrow_kernel(cuda):
+    """HiFi-GAN V1 in bf16 with its C >= 64 stages in int8: each call
+    launches no wide ResBlock kernel and the narrow one 3 times (the
+    C = 32 stage), and holds its plain version with the same scales above
+    40 dB."""
+    from unittest import mock
+
+    from tts_arabic_torch.ops import hifigan_int8 as h8
+    from tts_arabic_torch.vocoder import hifigan
+    from tts_arabic_torch.vocoder.hifigan import Generator, HiFiGANConfig
+    from tts_arabic_torch.models.layers import init_weights
+    gen = init_weights(Generator(HiFiGANConfig()), 1).to(cuda).eval()
+    g = torch.Generator().manual_seed(0)
+    mel = (torch.randn((2, 64, 80), generator=g) * 1.5 - 5).to(cuda)
+    mel = mel.to(torch.bfloat16)
+    with torch.no_grad():
+        scales = h8.collect_mrf_scales(gen, mel)
+        assert len(scales) == 54
+        before = dict(rb.LAUNCHES)
+        got = h8.generator_apply_int8(gen, mel, scales)
+        torch.cuda.synchronize()
+        assert rb.LAUNCHES["resblock1_wide"] == before["resblock1_wide"]
+        assert rb.LAUNCHES["resblock1_narrow"] - before[
+            "resblock1_narrow"] == 3
+        plain = lambda x, *a: rb.resblock1_plain(  # noqa: E731
+            x.float(), *(t.float() for t in a[:4]), *a[4:]).to(x.dtype)
+        with mock.patch.object(hifigan, "resblock1", plain):
+            want = h8.generator_apply_int8(gen, mel, scales)
+    assert _snr_db(want.float().cpu().numpy(),
+                   got.float().cpu().numpy()) > 40.0
+
+
+@pytest.mark.cuda
+def test_int8_calibrate_after_warmup_replays_int8_graphs(cuda):
+    """warmup() captures the float decoder's graphs; calibrate_int8 drops
+    them and captures the int8 FFN's: the graphed tts_single then equals
+    the eager int8 call, and stream() replays the same graphs."""
+    import numpy as np
+    pipe = _card_pipe(torch.bfloat16)
+    pipe.warmup(batch_sizes=(1,), text_buckets=(16,), mel_buckets=(256,))
+    assert any(key[0] == "decode" and not key[-1]
+               for key in pipe.model._graphs)
+    pipe.calibrate_int8()
+    keys = [key for key in pipe.model._graphs if key[0] == "decode"]
+    assert keys and all(key[-1] for key in keys)
+    replays = pipe.model.graph_replays
+    got = pipe.tts_single(STREAM_TEXT, denoise=0.005)
+    assert pipe.model.graph_replays == replays + 2
+    with _eager(pipe):
+        want = pipe.tts_single(STREAM_TEXT, denoise=0.005)
+    np.testing.assert_array_equal(got, want)
+    streamed = np.concatenate(list(pipe.stream(STREAM_TEXT, denoise=0.005)))
+    assert streamed.shape == got.shape
+    assert _snr_db(got, streamed) > 30.0
+
+
+@pytest.mark.cuda
+def test_vocos_matches_its_cpu_run(cuda):
+    """MelVocosModule (CONFIG_22K, seeded) on the card in f32, TF32 off,
+    against the same weights on the CPU: within 1e-4 of the peak."""
+    from tts_arabic_torch.vocoder.vocos import (CONFIG_22K, MelVocosModule,
+                                                init_vocos)
+    module = init_vocos(MelVocosModule(**{
+        k: v for k, v in CONFIG_22K.items() if k != "sample_rate"}), 1)
+    g = torch.Generator().manual_seed(0)
+    mel = torch.randn((2, 300, 80), generator=g) * 2 - 4
+    with torch.no_grad():
+        bias = module.bias_vector()
+        want = module(mel, bias, 0.005)
+        card = module.to(cuda)
+        got = card(mel.to(cuda), card.bias_vector(), 0.005).cpu()
+    assert got.shape == want.shape == (2, 300 * 256)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-4

@@ -1,7 +1,7 @@
-"""Seeded weights of a narrow FastPitch and a narrow HiFi-GAN for the port's
-CPU tests, written as reference `.pth` files that the port and the JAX
-package both load (the JAX package through its own `.pth` importer, which
-spares its eager flax init, some 35 s on the CPU)."""
+"""Seeded weights of a narrow FastPitch, narrow HiFi-GANs, Tacotron2 and
+Vocos for the port's CPU tests, written as reference `.pth` files that the
+port and the JAX package both load (the JAX package through its own `.pth`
+importer, which spares its eager flax init, some 35 s on the CPU)."""
 import json
 import pathlib
 
@@ -101,4 +101,66 @@ def write_tacotron2_weights(directory, config, seed: int = 0,
     path = d / "tacotron2.pth"
     torch.save({"model": tacotron2_state_dict(config, seed, gate_bias),
                 "config": dataclasses.asdict(config)}, path)
+    return str(path)
+
+
+# HiFi-GAN V1's kernel sizes, dilations and upsample rates on 128 initial
+# channels: one stage (C = 64) that the int8 path claims at min_ch = 64,
+# 3 blocks x 3 dilations x 2 convs = 18 sites (the 64-channel vocoder
+# above claims none, which the JAX package refuses)
+INT8_VOCODER = dict(NARROW_VOCODER, upsample_initial_channel=128)
+
+
+def write_int8_vocoder(directory, seed: int = 1,
+                       gain: float = 1.0) -> tuple:
+    """A seeded INT8_VOCODER as a reference `.pth` -> (`.pth`, `.json`).
+    `gain` scales conv_post: the seeded generator alone gives waves near
+    4e-4."""
+    d = pathlib.Path(directory)
+    d.mkdir(parents=True, exist_ok=True)
+    vocoder_json = d / "vocoder_int8.json"
+    vocoder_json.write_text(json.dumps(INT8_VOCODER))
+    generator = init_weights(
+        Generator(HiFiGANConfig.from_json(vocoder_json)), seed)
+    with torch.no_grad():
+        generator.conv_post.weight.mul_(gain)
+    path = d / "hifigan_int8.pth"
+    torch.save({"generator": generator.state_dict()}, path)
+    return str(path), str(vocoder_json)
+
+
+def vocos_state_dict(module, seed: int = 0) -> dict:
+    """Seeded reference-layout weights for a Vocos module of the port,
+    drawn with numpy: weights N(0, 1/fan_in), biases N(0, 0.1), LayerNorm
+    scales U(0.8, 1.2), layer-scale gammas U(0.05, 0.2); plus the
+    reference's ISTFT window buffer, which carries no weights and which a
+    loader skips."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for key, val in module.state_dict().items():
+        shape = tuple(val.shape)
+        if key.endswith("gamma") or ".gamma." in key:
+            a = rng.uniform(0.05, 0.2, shape)
+        elif len(shape) == 1 and key.endswith("weight"):   # a LayerNorm
+            a = rng.uniform(0.8, 1.2, shape)
+        elif len(shape) == 1:
+            a = 0.1 * rng.standard_normal(shape)
+        else:
+            a = rng.standard_normal(shape) / np.sqrt(np.prod(shape[1:]))
+        sd[key] = torch.tensor(a, dtype=torch.float32)
+    sd["head.istft.window"] = torch.hann_window(1024)
+    return sd
+
+
+def write_vocos_weights(directory, seed: int = 0) -> str:
+    """A seeded reference MelVocos `.pth` (CONFIG_22K's full widths) that
+    the port and the JAX package both load."""
+    from tts_arabic_torch.vocoder.vocos import CONFIG_22K, MelVocosModule
+    d = pathlib.Path(directory)
+    d.mkdir(parents=True, exist_ok=True)
+    module = MelVocosModule(**{k: v for k, v in CONFIG_22K.items()
+                               if k != "sample_rate"})
+    path = d / "vocos.pth"
+    torch.save(vocos_state_dict(module, seed), path)
     return str(path)

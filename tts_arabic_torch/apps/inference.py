@@ -10,7 +10,9 @@ vocoder, the `--bf16` default) or `--model tacotron2` (f32 throughout, as
 the JAX CLI builds it) and HiFi-GAN, and writes wavs and an HTML listening
 page. The flags are the JAX CLI's, plus `--device`: it runs on the CUDA
 card unless `--device cpu` (or `--cpu`) is given, and raises when there is
-no card. `--quantize int8` is not ported yet and raises.
+no card. `--quantize int8` serves either model with the static-calibrated
+int8 MRF vocoder stages (and FastPitch's decoder FFN), calibrated when the
+pipeline is built.
 """
 from __future__ import annotations
 
@@ -37,16 +39,6 @@ def read_lines(path):
     return out
 
 
-def not_ported(model: str = "fastpitch", quantize=None) -> None:
-    """Raise for the serving options whose slice is not ported yet."""
-    if quantize:
-        name = {"fastpitch": "FastPitch", "tacotron2": "Tacotron2"}[model]
-        raise NotImplementedError(
-            f"--quantize {quantize} is not ported yet for {name}: the int8 "
-            "serving path is a later slice of the port (ROADMAP.md, queue "
-            "1, item 2)")
-
-
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--list", default="data/infer_text.txt")
@@ -67,16 +59,15 @@ def main(argv=None):
                         help="the same as --device cpu")
     parser.add_argument("--bf16", action="store_true", default=True)
     parser.add_argument("--quantize", choices=["int8"], default=None,
-                        help="int8 MRF vocoder serving path (not ported "
-                             "yet)")
+                        help="int8 MRF vocoder serving path")
     parser.add_argument("--device", default=None,
                         help="torch device; default the CUDA card")
     args = parser.parse_args(argv)
-    not_ported(args.model, args.quantize)
 
     kwargs = dict(vocoder_sd=args.vocoder_sd,
                   vocoder_config=args.vocoder_config,
                   vowelizer=args.vowelizer, arabic_in=not args.buckwalter,
+                  quantize=args.quantize,
                   device="cpu" if args.cpu else args.device)
     if args.model == "fastpitch":
         from ..infer import FastPitch2Wave

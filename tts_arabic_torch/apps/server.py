@@ -20,9 +20,10 @@ Endpoints (reference app.py:16-43, plus streaming):
 The registry (`app_models.yaml`) lists the models to serve: name, type
 (fastpitch or tacotron2, each with HiFi-GAN), optional checkpoint (a
 reference `.pth`, or a `states.ckpt` of `apps.train_fastpitch`),
-vocoder_sd / vocoder_config, and, for the port, compute_dtype (bfloat16
-or float32, default float32). A `quantize` entry is not ported yet and
-raises. The models run on the CUDA card unless `--device cpu` is given.
+vocoder_sd / vocoder_config, quantize (int8: the static-calibrated int8
+path, calibrated at load) and, for the port, compute_dtype (bfloat16 or
+float32, default float32). The models run on the CUDA card unless
+`--device cpu` is given.
 Before it serves, the server runs `TTSManager.warmup()`: each pipeline's
 own `warmup()` (FastPitch: its bucket grid and the one-row encode and
 decoder graphs; Tacotron2: the decode-block graphs at batch 1 and text
@@ -49,7 +50,6 @@ from ..audio import peak_normalize, save_wav
 from ..infer.pipeline import MEL_BUCKETS
 from ..runtime.config import parse_yaml
 from ..text.buckwalter import _ARABIC, _BUCKWALTER
-from .inference import not_ported
 
 _STATIC = pathlib.Path(__file__).parent / "static"
 _TYPES = ("fastpitch", "tacotron2")
@@ -124,12 +124,11 @@ class TTSManager:
         kind = item.get("type", "fastpitch")
         if kind not in _TYPES:
             raise ValueError(f"model type {kind!r}: one of {_TYPES}")
-        not_ported(kind, item.get("quantize"))
         dtype = item.get("compute_dtype")
         if dtype not in _DTYPES:
             raise ValueError(f"compute_dtype {dtype!r}: bfloat16 or float32")
         kwargs = dict(arabic_in=False, compute_dtype=_DTYPES[dtype],
-                      device=device)
+                      quantize=item.get("quantize"), device=device)
         if item.get("checkpoint"):
             kwargs["model_sd_path"] = item["checkpoint"]
         if item.get("vocoder_sd"):

@@ -1,6 +1,6 @@
-"""Signal framing and the host-side log-mel frontend (the parts of the JAX
-package's `audio/mel.py` that the inference path and the training
-datasets use).
+"""Signal framing, the mel filterbanks (slaney, and HTK for Vocos) and the
+host-side log-mel frontend (the parts of the JAX package's `audio/mel.py`
+that the inference path, the training datasets and Vocos use).
 
 Analysis parameters as the reference (`utils/audio.py:6-46`): 22050 Hz,
 n_fft = win_length = 1024, hop 256, 80 mel bands, fmin 0 / fmax 8000,
@@ -50,24 +50,37 @@ def mel_to_hz(mel):
         freq)
 
 
+def hz_to_mel_htk(freq):
+    return 2595.0 * np.log10(1.0 + np.asanyarray(freq, np.float64) / 700.0)
+
+
+def mel_to_hz_htk(mel):
+    return 700.0 * (10.0 ** (np.asanyarray(mel, np.float64) / 2595.0) - 1.0)
+
+
 def slaney_mel_filterbank(sample_rate: int, n_fft: int, n_mels: int,
-                          fmin: float = 0.0,
-                          fmax: float | None = None) -> np.ndarray:
-    """Triangular mel filterbank [n_mels, n_fft//2 + 1] with slaney area
-    normalization, equivalent to librosa.filters.mel(htk=False) (reference
-    `utils/audio.py:27-30`)."""
+                          fmin: float = 0.0, fmax: float | None = None,
+                          norm: str | None = "slaney",
+                          htk: bool = False) -> np.ndarray:
+    """Triangular mel filterbank [n_mels, n_fft//2 + 1]: with the defaults
+    slaney's scale and area normalization, equivalent to
+    librosa.filters.mel(htk=False) (reference `utils/audio.py:27-30`);
+    htk=True, norm=None gives torchaudio's default HTK filterbank (Vocos's
+    `MelSpectrogramFeatures`, feature_extractors.py:28-64)."""
     if fmax is None:
         fmax = sample_rate / 2.0
+    to_mel, to_hz = ((hz_to_mel_htk, mel_to_hz_htk) if htk
+                     else (hz_to_mel, mel_to_hz))
     fft_freqs = np.linspace(0.0, sample_rate / 2.0, n_fft // 2 + 1)
-    hz_pts = mel_to_hz(np.linspace(hz_to_mel(fmin), hz_to_mel(fmax),
-                                   n_mels + 2))
+    hz_pts = to_hz(np.linspace(to_mel(fmin), to_mel(fmax), n_mels + 2))
     fdiff = np.diff(hz_pts)
     ramps = hz_pts[:, None] - fft_freqs[None, :]
     lower = -ramps[:-2] / fdiff[:-1, None]
     upper = ramps[2:] / fdiff[1:, None]
     weights = np.maximum(0.0, np.minimum(lower, upper))
-    enorm = 2.0 / (hz_pts[2: n_mels + 2] - hz_pts[:n_mels])
-    return (weights * enorm[:, None]).astype(np.float32)
+    if norm == "slaney":
+        weights *= (2.0 / (hz_pts[2: n_mels + 2] - hz_pts[:n_mels]))[:, None]
+    return weights.astype(np.float32)
 
 
 @dataclasses.dataclass(frozen=True)

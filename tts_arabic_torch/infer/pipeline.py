@@ -21,6 +21,11 @@ tail samples depend on it.
 `stream()` decodes the whole mel once and vocodes it window by window
 (overlap-discard), so the first audio is ready after one window.
 
+`FastPitch2Wave(vocoder_type="vocos")` vocodes with Vocos (its denoising
+in the head); `quantize="int8"` / `calibrate_int8()` run the HiFi-GAN
+MRF stages of >= 64 channels and the decoder FFN in static-scale int8
+(`ops.hifigan_int8`, `models.layers.ConvFFN`).
+
 On the card a one-row batch (`tts_single`, `stream`, `tts` at batch size
 1) pads its tokens to a GRAPH_TEXT_BUCKETS length, and its encode and
 decoder replay the CUDA graphs that `capture_graphs()` (run by
@@ -33,6 +38,7 @@ there is no CUDA device; pass `device="cpu"` to run on the CPU.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import List, Optional, Sequence, Union
 
 import numpy as np
@@ -245,24 +251,39 @@ class FastPitchTTS:
         enc["dec_len_max"] = enc["dec_lens"].max()
         return enc
 
-    def _decoder_fn(self, regulated, mel_lens):
+    def _decoder_fn(self, regulated, mel_lens, ffn_scales=None):
         """Decoder + projection in regulated's dtype; padding frames are set
         to the log-mel silence floor so the vocoder sees silence, not
-        decoder noise."""
-        mel = self.model.decode_regulated(regulated, mel_lens)
+        decoder noise. ffn_scales: the decoder ConvFFNs' int8 input scales
+        (one f32 [2] device tensor a layer), for this call only."""
+        decoder = self.model.decoder
+        decoder.set_ffn_int8(ffn_scales)
+        try:
+            mel = self.model.decode_regulated(regulated, mel_lens)
+        finally:
+            decoder.set_ffn_int8(None)
         frame_ids = torch.arange(mel.shape[1], device=mel.device)[None, :,
                                                                  None]
         return torch.where(frame_ids < mel_lens[:, None, None], mel,
                            LOG_MEL_PAD)
 
-    def _decode_fn(self, enc_out, durations, pace, *, max_frames):
-        """Length-regulate to max_frames, then decode in enc_out's dtype."""
+    def _decode_fn(self, enc_out, durations, pace, *, max_frames,
+                   ffn_scales=None):
+        """Length-regulate to max_frames, then decode in enc_out's dtype
+        (the decoder FFN in int8 with `ffn_scales`)."""
         regulated, mel_lens = regulate_len(durations, enc_out, max_frames,
                                            pace)
-        mel = self._graphed(("decode", tuple(regulated.shape),
-                             regulated.dtype), self._decoder_fn, regulated,
-                            mel_lens)
+        mel = self._graphed(self._decode_key(regulated, ffn_scales),
+                            functools.partial(self._decoder_fn,
+                                              ffn_scales=ffn_scales),
+                            regulated, mel_lens)
         return mel, mel_lens
+
+    @staticmethod
+    def _decode_key(regulated, ffn_scales) -> tuple:
+        """The graph key of a decode: shape, dtype, float or int8 FFN."""
+        return ("decode", tuple(regulated.shape), regulated.dtype,
+                ffn_scales is not None)
 
     # -- CUDA graphs of the one-row encode and decoder -----------------------
 
@@ -298,14 +319,16 @@ class FastPitchTTS:
             out = fn(*static)
         self._graphs[key] = (graph, static, out)
 
-    def capture_graphs(self, dtype: torch.dtype | None = None) -> None:
+    def capture_graphs(self, dtype: torch.dtype | None = None,
+                       ffn_scales=None) -> None:
         """Record CUDA graphs of the one-row encode at every
         GRAPH_TEXT_BUCKETS length and of the decoder at every MEL_BUCKETS
         length in `dtype` (float32 when None; the decode dtype of the
-        caller). Every later one-row encode and decode at those lengths
-        replays them, whatever its text, speed, pitch and speaker; nothing
-        is captured on a request's path, and a longer one runs eagerly.
-        Does nothing off the card.
+        caller), its FFN in int8 with `ffn_scales` (the graphs read those
+        tensors, which must outlive them). Every later one-row encode and
+        decode at those lengths, in that mode, replays them, whatever its
+        text, speed, pitch and speaker; nothing is captured on a request's
+        path, and a longer one runs eagerly. Does nothing off the card.
 
         The graphs share one memory pool: a graph's intermediates may lie
         where another's outputs do, which is safe because `_graphed` copies
@@ -328,10 +351,13 @@ class FastPitchTTS:
                               scalar(1.0), scalar(0.0),
                               scalar(0, torch.long), scalar(1.0), pool=pool)
             for frames in MEL_BUCKETS:
+                regulated = torch.zeros((1, frames, d_model), dtype=dtype,
+                                        device=dev)
                 self._capture(
-                    ("decode", (1, frames, d_model), dtype),
-                    self._decoder_fn,
-                    torch.zeros((1, frames, d_model), dtype=dtype, device=dev),
+                    self._decode_key(regulated, ffn_scales),
+                    functools.partial(self._decoder_fn,
+                                      ffn_scales=ffn_scales),
+                    regulated,
                     torch.full((1,), frames, dtype=torch.int32, device=dev),
                     pool=pool)
 
@@ -412,15 +438,47 @@ class FastPitchTTS:
         return out
 
 
+# the default int8 calibration texts (ASC corpus sentences, long and
+# phoneme-diverse so that the MRF activations span their serving range;
+# the same sentences in both input modes, as the JAX package's:
+# data/test_arab.txt line 1, data/infer_test.txt lines 1-3)
+_INT8_CALIB_ARABIC = [
+    "أَتاحَت لِلبائِعِ لمُتَجَوِّلِ أَن يَكُونَ جاذِبَن لِلمُواطِنِ لأَقَلِّ دَخلَن",
+    "أَحرَزَت مُنتَخَباتُ لبَرازِيلِ وَألمانيا وَرُوسيا فَوزَن فِي مُقابَلاتِهِم"
+    " لإِعدادِيَّةِ لَّتِي أُقِيمَت ِستِعدادَن لِنِهائِيّاتِ كَأسِ لعالَم",
+    "إِذ سَيَحضُرُ لِقاءَ هَذا لعامِ خَمسُن وَثَلاثُونَ مِنهُم",
+]
+_INT8_CALIB_BUCKWALTER = [
+    ">atAHat lilbA}iEi lmutajaw~ili >an yakuwna jA*iban lilmuwATini"
+    " l>aqal~i daxlan",
+    ">aHrazat muntaxabAtu lbarAziyli wa>lmAnyA waruwsyA fawzan fiy"
+    " muqAbalAtihim l<iEdAdiy~api",
+    "<i* sayaHDuru liqAa ha*A lEAmi xamsun wa^alA^uwna minhum",
+]
+
+
+def _check_quantize(quantize) -> None:
+    if quantize not in (None, "int8"):
+        raise ValueError(f"unknown quantize mode {quantize!r}; "
+                         "supported: 'int8'")
+
+
+def _calibration_texts(texts, arabic_in: bool) -> list:
+    return list(texts or (_INT8_CALIB_ARABIC if arabic_in
+                          else _INT8_CALIB_BUCKWALTER))
+
+
 class FastPitch2Wave:
     """End-to-end text -> waveform (reference `FastPitch2Wave` equivalent):
-    FastPitch, HiFi-GAN and the spectral denoiser."""
+    FastPitch, HiFi-GAN (or Vocos) and the spectral denoiser."""
 
     def __init__(self, model_sd_path=None, vocoder_sd=None,
                  vocoder_config=None, vowelizer: Optional[str] = None,
                  arabic_in: bool = True, config=None, seed: int = 0,
                  compute_dtype: torch.dtype | None = None,
-                 strict_text: bool = False, device=None):
+                 strict_text: bool = False, device=None,
+                 vocoder_type: str = "hifigan",
+                 quantize: Optional[str] = None):
         """compute_dtype: torch.bfloat16 runs the decoder and the vocoder in
         bf16 (weights stay f32 in memory and are cast per call); encode and
         the denoiser stay f32. None = f32 throughout.
@@ -428,18 +486,48 @@ class FastPitch2Wave:
         vocoder_sd: a reference HiFi-GAN `.pth` (weight norm is folded at
         load); None takes the basic config's vocoder when an acoustic
         checkpoint is given and that file exists, else seeded random
-        weights (seed + 1)."""
+        weights (seed + 1).
+
+        vocoder_type: "hifigan" (default) or "vocos": `MelVocosModule` with
+        CONFIG_22K, from a reference Vocos `.pth` (vocoder_sd) or seeded
+        (seed + 1), its denoising fused into its head (JAX
+        `infer/pipeline.py:427-448`).
+
+        quantize: None or "int8": the static-calibrated int8 HiFi-GAN MRF
+        stages and decoder FFN (`calibrate_int8`), calibrated in this
+        constructor on the built-in texts."""
+        _check_quantize(quantize)
+        if vocoder_type not in ("hifigan", "vocos"):
+            raise ValueError(f"unknown vocoder_type {vocoder_type!r}; "
+                             "'hifigan' or 'vocos'")
         self.compute_dtype = compute_dtype
+        self.vocoder_type = vocoder_type
         self.model = FastPitchTTS(model_sd_path, config=config,
                                   arabic_in=arabic_in, vowelizer=vowelizer,
                                   seed=seed, strict_text=strict_text,
                                   device=device)
         self.device = self.model.device
+        if vocoder_type == "vocos":
+            self._init_vocos(vocoder_sd, seed)
+        else:
+            self._init_hifigan(vocoder_sd, vocoder_config, seed,
+                               model_sd_path is not None)
+        # the generator tts() and stream() run: the float module, or its
+        # int8 form after calibrate_int8
+        self._vocode = self.vocoder
+        self._int8_scales = None
+        self._ffn_scales = None
+        if quantize == "int8":
+            self.calibrate_int8()
+
+    def _init_hifigan(self, vocoder_sd, vocoder_config, seed, enabled):
         vocoder_sd, vocoder_config = _default_vocoder_paths(
-            vocoder_sd, vocoder_config, enabled=model_sd_path is not None)
+            vocoder_sd, vocoder_config, enabled=enabled)
         self.vocoder_config = (HiFiGANConfig.from_json(vocoder_config)
                                if vocoder_config is not None
                                else HiFiGANConfig())
+        self._sample_rate = self.vocoder_config.sampling_rate
+        self._hop = self.vocoder_config.hop_length
         self.vocoder = Generator(self.vocoder_config)
         if vocoder_sd is not None:
             sd, _ = load_reference_pth(vocoder_sd)
@@ -453,13 +541,118 @@ class FastPitch2Wave:
                 self.vocoder, self.vocoder_config.num_mels,
                 device=self.device)
 
+    def _init_vocos(self, vocoder_sd, seed):
+        from ..vocoder.vocos import (CONFIG_22K, MelVocosModule, init_vocos,
+                                     load_vocos_state)
+        cfg = CONFIG_22K
+        self.vocoder_config = None
+        self._sample_rate, self._hop = cfg["sample_rate"], cfg["hop_length"]
+        self.vocoder = MelVocosModule(**{k: v for k, v in cfg.items()
+                                         if k != "sample_rate"})
+        if vocoder_sd is not None:
+            load_vocos_state(self.vocoder, load_reference_pth(vocoder_sd)[0])
+        else:
+            init_vocos(self.vocoder, seed + 1)
+        self.vocoder.to(self.device).eval()
+        with _exact_f32():
+            self.bias_spec = self.vocoder.bias_vector()
+
     @property
     def sample_rate(self) -> int:
-        return self.vocoder_config.sampling_rate
+        return self._sample_rate
 
     @property
     def hop_length(self) -> int:
-        return self.vocoder_config.hop_length
+        return self._hop
+
+    def calibrate_int8(self, texts: Optional[List[str]] = None, mels=None,
+                       min_ch: int = 64, margin: float = 1.0, ffn="auto"):
+        """Switch the serving path to static-calibrated int8 (JAX
+        `calibrate_int8`): the HiFi-GAN MRF stages of >= min_ch channels
+        and, when calibrating from texts, the decoder's ConvFFN convs
+        (encode, durations and pitch stay float, so output lengths do not
+        change).
+
+        The per-conv activation scales come from `mels` ([B, T, 80], one
+        or a list), or from mels this model decodes (in the compute dtype)
+        for `texts` (default: a built-in phoneme-diverse set). tts() and
+        stream() take the int8 path at once; CUDA graphs that warmup()
+        captured are dropped and captured again in the new mode. Returns
+        the vocoder's scales. HiFi-GAN ResBlock1 checkpoints only. ffn:
+        True, False or "auto" (the decoder FFN too when calibrating from
+        texts)."""
+        if self.vocoder_type != "hifigan":
+            raise ValueError("int8 quantization covers the HiFi-GAN path")
+        if self.vocoder_config.resblock != "1":
+            raise ValueError("int8 quantization covers ResBlock1 configs")
+        from ..ops.hifigan_int8 import (check_stages, collect_mrf_scales,
+                                        generator_apply_int8)
+        check_stages(self.vocoder_config, min_ch)
+        m = self.model
+        dt = self.compute_dtype
+        if ffn == "auto":
+            ffn = mels is None
+        if ffn and mels is not None:
+            raise ValueError("decoder-FFN calibration needs the texts path "
+                             "(pass texts=..., or ffn=False with mels=...)")
+        ffn_scales = None
+        with _exact_f32():
+            if mels is None:
+                ids = m.tokenize_batch(
+                    _calibration_texts(texts, m.arabic_in), None)
+                if ffn:
+                    mel, ffn_scales = self._calibration_decode(ids, margin)
+                else:
+                    mel = m._infer_batch_mel(ids, 1.0, 0, 1.0, 0.0)[0]
+                mels = [mel]
+            elif isinstance(mels, (torch.Tensor, np.ndarray)):
+                mels = [mels]
+            mels = [torch.as_tensor(x).to(self.device, dt or torch.float32)
+                    for x in mels]
+            scales = collect_mrf_scales(self.vocoder, mels, min_ch=min_ch,
+                                        margin=margin)
+        self._vocode = functools.partial(generator_apply_int8, self.vocoder,
+                                         scales=scales, min_ch=min_ch)
+        self._int8_scales = scales
+        self._ffn_scales = ffn_scales
+        if m._graphs:   # captured in the old mode: capture them again
+            m._graphs.clear()
+            m.capture_graphs(dt, ffn_scales)
+        return scales
+
+    def _calibration_decode(self, ids, margin: float):
+        """One float decode of the calibration texts in the compute dtype,
+        recording each decoder ConvFFN's input max-abs (JAX's "calib"
+        collection): (the mels, padded with LOG_MEL_PAD; the FFN scales,
+        one f32 [2] device tensor a layer)."""
+        m = self.model
+        enc = m._encode_batch(ids, 0, 1.0, 0.0, None, 1.0)[0]
+        bucket = _pick_mel_bucket(int(enc["dec_len_max"]))
+        enc_out = enc["enc_out"]
+        if self.compute_dtype is not None:
+            enc_out = enc_out.to(self.compute_dtype)
+        regulated, mel_lens = regulate_len(enc["dur_pred"], enc_out, bucket,
+                                           1.0)
+        with m.model.decoder.calibrate_ffn() as stats:
+            mel = m._decoder_fn(regulated, mel_lens)
+        ffn_scales = [torch.tensor(
+            [max(float(s["ffn_amax1"]), 1e-12) * margin / 127.0,
+             max(float(s["ffn_amax2"]), 1e-12) * margin / 127.0],
+            dtype=torch.float32, device=self.device) for s in stats]
+        return mel, ffn_scales
+
+    def _vocode_mel(self, mel, denoise_strength: float, use_denoiser: bool):
+        """The vocoder (+ denoiser) on a mel window or a whole call's mel
+        (after chunked_vocode's split): f32 wave."""
+        if self.vocoder_type == "vocos":
+            strength = denoise_strength if use_denoiser else 0.0
+            return self.vocoder(mel, self.bias_spec.to(mel.dtype),
+                                strength).float()
+        wave = self._vocode(mel).float()
+        if use_denoiser:
+            wave = denoiser_mod.denoise(wave, self.bias_spec,
+                                        denoise_strength)
+        return wave
 
     def _wave_fn(self, enc_out, durations, denoise_strength, pace, *,
                  max_frames, use_denoiser, return_mel=False,
@@ -468,11 +661,20 @@ class FastPitch2Wave:
         if self.compute_dtype is not None:
             enc_out = enc_out.to(self.compute_dtype)
         mel, mel_lens = m._decode_fn(enc_out, durations, pace,
-                                     max_frames=max_frames)
-        wave = chunked_vocode(self.vocoder, mel).float()
-        if use_denoiser:
-            wave = denoiser_mod.denoise(wave, self.bias_spec,
-                                        denoise_strength)
+                                     max_frames=max_frames,
+                                     ffn_scales=self._ffn_scales)
+        if self.vocoder_type == "vocos":
+            # the ConvNeXt stack sees about +-27 frames: a 32-frame overlap
+            # keeps chunked == whole (JAX infer/pipeline.py:616-624)
+            wave = chunked_vocode(
+                lambda x: self._vocode_mel(x, denoise_strength,
+                                           use_denoiser),
+                mel, core=192, overlap=32)
+        else:
+            wave = chunked_vocode(self._vocode, mel).float()
+            if use_denoiser:
+                wave = denoiser_mod.denoise(wave, self.bias_spec,
+                                            denoise_strength)
         mel = mel.float() if return_mel else None
         return _output(wave, out_int16), mel, mel_lens
 
@@ -544,11 +746,8 @@ class FastPitch2Wave:
         """Vocode (+ denoise in f32) `window` frames of the decoded mel
         from frame `start`, with the generator tts() uses."""
         piece = mel[:, start: start + window].contiguous()
-        wave = self.vocoder(piece).float()
-        if use_denoiser:
-            wave = denoiser_mod.denoise(wave, self.bias_spec,
-                                        denoise_strength)
-        return _output(wave, out_int16)
+        return _output(self._vocode_mel(piece, denoise_strength,
+                                        use_denoiser), out_int16)
 
     def stream(self, utterance: str, chunk_frames: int = 128,
                overlap: int = 16, speed: float = 1.0, denoise: float = 0.005,
@@ -584,7 +783,8 @@ class FastPitch2Wave:
 
         def decode(enc_out, durations, frames):
             return m._decode_fn(enc_out, durations, float(speed),
-                                max_frames=frames)[0]
+                                max_frames=frames,
+                                ffn_scales=self._ffn_scales)[0]
 
         enc = m._encode_batch([m.tokenize(utterance, vowelizer)], speaker_id,
                               pitch_mul, pitch_add, speed=speed)[0]
@@ -637,7 +837,7 @@ class FastPitch2Wave:
                                       use_denoiser=denoise > 0,
                                       return_mel=return_mel,
                                       out_int16=out_int16)
-        m.capture_graphs(self.compute_dtype)
+        m.capture_graphs(self.compute_dtype, self._ffn_scales)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 

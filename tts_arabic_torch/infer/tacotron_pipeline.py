@@ -29,6 +29,7 @@ there is no CUDA device; pass `device="cpu"` to run on the CPU.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Union
 
 import numpy as np
@@ -42,9 +43,9 @@ from ..runtime.checkpoint import load_states
 from ..runtime.device import resolve_device
 from ..vocoder import denoiser as denoiser_mod
 from ..vocoder.hifigan import Generator, HiFiGANConfig, chunked_vocode
-from .pipeline import (LOG_MEL_PAD, TEXT_BUCKET, _default_vocoder_paths,
-                       _exact_f32, _output, _pad_ids, _pick_mel_bucket,
-                       _round_up)
+from .pipeline import (LOG_MEL_PAD, TEXT_BUCKET, _calibration_texts,
+                       _check_quantize, _default_vocoder_paths, _exact_f32,
+                       _output, _pad_ids, _pick_mel_bucket, _round_up)
 
 # tokens whose trailing sound the stop token tends to cut; after any other
 # final token the reference inserts an extra separator and truncates on
@@ -451,15 +452,12 @@ class Tacotron2Wave:
 
         vocoder_sd: a reference HiFi-GAN `.pth`; None takes the basic
         config's vocoder when an acoustic checkpoint is given and that file
-        exists, else seeded random weights (seed + 1)."""
-        if quantize not in (None, "int8"):
-            raise ValueError(f"unknown quantize mode {quantize!r}; "
-                             "supported: 'int8'")
-        if quantize:
-            raise NotImplementedError(
-                "quantize='int8' is not ported yet: the int8 serving path "
-                "and calibrate_int8 are a later slice of the port "
-                "(ROADMAP.md, queue 1, item 2)")
+        exists, else seeded random weights (seed + 1).
+
+        quantize: None or "int8": the static-calibrated int8 MRF stages,
+        as `FastPitch2Wave(quantize="int8")`; the constructor calibrates
+        them on the built-in texts, decoded through this model."""
+        _check_quantize(quantize)
         self.model = Tacotron2TTS(model_sd_path, config=config,
                                   arabic_in=arabic_in, vowelizer=vowelizer,
                                   seed=seed, compute_dtype=compute_dtype,
@@ -482,6 +480,48 @@ class Tacotron2Wave:
             self.bias_spec = denoiser_mod.compute_bias_spec(
                 self.vocoder, self.vocoder_config.num_mels,
                 device=self.device)
+        # the generator tts() and stream() run: the float module, or its
+        # int8 form after calibrate_int8
+        self._vocode = self.vocoder
+        self._int8_scales = None
+        if quantize == "int8":
+            self.calibrate_int8()
+
+    def calibrate_int8(self, texts: Optional[List[str]] = None, mels=None,
+                       min_ch: int = 64, margin: float = 1.0):
+        """Switch the vocoder to the static-calibrated int8 MRF path (JAX
+        `Tacotron2Wave.calibrate_int8`; HiFi-GAN ResBlock1 only): scales
+        from `mels` ([B, T, 80], one or a list), or from `texts` decoded
+        through this model (default: the built-in calibration set), their
+        mels stacked at a mel bucket with LOG_MEL_PAD. tts() and stream()
+        take it at once. Returns the scales."""
+        if self.vocoder_config.resblock != "1":
+            raise ValueError("int8 quantization covers HiFi-GAN ResBlock1 "
+                             "configs")
+        from ..ops.hifigan_int8 import (check_stages, collect_mrf_scales,
+                                        generator_apply_int8)
+        check_stages(self.vocoder_config, min_ch)
+        if mels is None:
+            got = self.model.ttmel_batch(
+                _calibration_texts(texts, self.model.arabic_in))
+            bucket = _pick_mel_bucket(max(m.shape[1] for m in got))
+            stacked = np.full((len(got), bucket, got[0].shape[0]),
+                              LOG_MEL_PAD, np.float32)
+            for i, m in enumerate(got):
+                stacked[i, : m.shape[1]] = m.T
+            mels = [stacked]
+        elif isinstance(mels, (torch.Tensor, np.ndarray)):
+            mels = [mels]
+        dt = self.compute_dtype or torch.float32
+        with _exact_f32():
+            scales = collect_mrf_scales(
+                self.vocoder,
+                [torch.as_tensor(m).to(self.device, dt) for m in mels],
+                min_ch=min_ch, margin=margin)
+        self._vocode = functools.partial(generator_apply_int8, self.vocoder,
+                                         scales=scales, min_ch=min_ch)
+        self._int8_scales = scales
+        return scales
 
     @property
     def compute_dtype(self):
@@ -578,7 +618,7 @@ class Tacotron2Wave:
         denoiser in f32 and the output format."""
         if self.compute_dtype is not None:
             mel = mel.to(self.compute_dtype)
-        wave = chunked_vocode(self.vocoder, mel).float()
+        wave = chunked_vocode(self._vocode, mel).float()
         if use_denoiser:
             wave = denoiser_mod.denoise(wave, self.bias_spec, strength)
         return _output(wave, out_int16)
@@ -643,7 +683,7 @@ class Tacotron2Wave:
         post = mel_w + self.model.model.postnet(mel_w, lens)
         idx = torch.arange(mel_w.shape[1], device=mel_w.device)[None, :, None]
         post = torch.where(idx < valid, post, LOG_MEL_PAD)
-        wave = self.vocoder(post).float()
+        wave = self._vocode(post).float()
         if use_denoiser:
             wave = denoiser_mod.denoise(wave, self.bias_spec, strength)
         return _output(wave, out_int16)

@@ -243,6 +243,40 @@ def diacritizer_params_to_torch(params: dict) -> dict:
     return sd
 
 
+def vocos_params_to_torch(variables: dict, num_layers: int = 8) -> dict:
+    """flax MelVocos variables -> the reference MelVocos / Vocos state dict
+    (the inverse of the JAX package's `vocos_params_from_torch`):
+    `backbone.embed`, `backbone.norm`, `backbone.convnext.{i}.dwconv` /
+    `norm` / `pwconv1` / `pwconv2` / `gamma`, `backbone.final_layer_norm`,
+    `head.out`."""
+    params = variables["params"]
+    bb = params["backbone"]
+    sd: dict = {}
+    _conv1d_t(sd, "backbone.embed", bb["embed"])
+    _ln_t(sd, "backbone.norm", bb["norm"])
+    for i in range(num_layers):
+        p, layer = f"backbone.convnext.{i}", bb[f"convnext_{i}"]
+        _conv1d_t(sd, f"{p}.dwconv", layer["dwconv"])
+        _ln_t(sd, f"{p}.norm", layer["norm"])
+        _dense_t(sd, f"{p}.pwconv1", layer["pwconv1"])
+        _dense_t(sd, f"{p}.pwconv2", layer["pwconv2"])
+        sd[f"{p}.gamma"] = _np(layer["gamma"])
+    _ln_t(sd, "backbone.final_layer_norm", bb["final_layer_norm"])
+    _dense_t(sd, "head.out", params["head"]["out"])
+    return sd
+
+
+def ffn_scales_from_quant(ffn_quant: dict) -> list:
+    """The JAX pipeline's decoder-FFN int8 scales (`_ffn_quant`,
+    {"decoder": {"layer_{i}": {"ff": {"ffn_ascale": [2]}}}}) -> one f32
+    [2] array per decoder layer, in layer order, for
+    `FFTransformer.set_ffn_int8`."""
+    layers = ffn_quant["decoder"]
+    names = sorted(layers, key=lambda n: int(n.rsplit("_", 1)[1]))
+    return [np.array(layers[n]["ff"]["ffn_ascale"], np.float32)
+            for n in names]
+
+
 def fold_weight_norm(sd: dict) -> dict:
     """Fold weight-norm pairs into plain weights, w = g * v / ||v||: both
     the legacy `weight_g`/`weight_v` keys and the modern

@@ -17,6 +17,7 @@ layer.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -108,7 +109,16 @@ class ConvFFN(nn.Module):
     `PositionwiseConvFF`, transformer.py:51-90). With `mask`, every conv
     input is re-masked so padded positions read as zeros, which makes the
     stack's output at real positions independent of bucket padding (the JAX
-    package's pad-invariance)."""
+    package's pad-invariance).
+
+    int8 serving hooks (JAX's "quant" and "calib" collections), both off
+    unless a caller opts in (`FFTransformer.set_ffn_int8`,
+    `FFTransformer.calibrate_ffn`):
+    - `ffn_ascale`, an f32 tensor [2] on the module's device, runs the two
+      convs on `ops.int8.int8_conv_static` with those static input scales
+      (pad rows still quantize to exact zeros);
+    - `calib`, a dict, records `ffn_amax1` / `ffn_amax2`: the max-abs of
+      each masked conv input, max-reduced across calls."""
 
     def __init__(self, d_model: int, d_inner: int, kernel_size: int = 3,
                  dropout: float = 0.0):
@@ -119,15 +129,35 @@ class ConvFFN(nn.Module):
             nn.Conv1d(d_model, d_inner, kernel_size), nn.ReLU(),
             nn.Conv1d(d_inner, d_model, kernel_size))
         self.layer_norm = nn.LayerNorm(d_model, eps=1e-5)
+        self.ffn_ascale = None
+        self.calib = None
+
+    def _record(self, name: str, y: torch.Tensor) -> None:
+        amax = y.float().abs().max()
+        prev = self.calib.get(name)
+        self.calib[name] = amax if prev is None else torch.maximum(prev,
+                                                                   amax)
+
+    def _conv(self, y: torch.Tensor, i: int) -> torch.Tensor:
+        conv = self.CoreNet[2 * i]
+        if self.ffn_ascale is None:
+            return conv1d_same(y, conv)
+        from ..ops.int8 import int8_conv_static
+        return int8_conv_static(y, conv.weight, conv.bias, 1,
+                                self.ffn_ascale[i])
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
                 gen: torch.Generator | None = None) -> torch.Tensor:
         m = None if mask is None else mask[..., None].to(x.dtype)
         y = x if m is None else x * m
-        y = torch.relu(conv1d_same(y, self.CoreNet[0]))
+        if self.calib is not None:
+            self._record("ffn_amax1", y)
+        y = torch.relu(self._conv(y, 0))
         if m is not None:
             y = y * m
-        y = dropout(conv1d_same(y, self.CoreNet[2]), self.dropout, gen)
+        if self.calib is not None:
+            self._record("ffn_amax2", y)
+        y = dropout(self._conv(y, 1), self.dropout, gen)
         return layer_norm(x + y, self.layer_norm)
 
 
@@ -217,6 +247,33 @@ class FFTransformer(nn.Module):
 
     def embed_tokens(self, inputs: torch.Tensor) -> torch.Tensor:
         return F.embedding(inputs, self.word_emb.weight)
+
+    def set_ffn_int8(self, scales) -> None:
+        """Each layer's ConvFFN on int8 with its static input scales
+        (`scales[i]`, two floats or an f32 [2] tensor), or every one back
+        to float (`scales=None`)."""
+        if scales is not None and len(scales) != len(self.layers):
+            raise ValueError(f"{len(scales)} FFN scales for "
+                             f"{len(self.layers)} layers")
+        for i, layer in enumerate(self.layers):
+            ff = layer.pos_ff
+            ff.ffn_ascale = None if scales is None else torch.as_tensor(
+                scales[i], dtype=torch.float32,
+                device=ff.CoreNet[0].weight.device)
+
+    @contextlib.contextmanager
+    def calibrate_ffn(self):
+        """Within, every ConvFFN records its inputs' max-abs; yields one
+        dict per layer ({"ffn_amax1", "ffn_amax2"} f32 device scalars once
+        a forward ran)."""
+        stats = [{} for _ in self.layers]
+        for layer, d in zip(self.layers, stats):
+            layer.pos_ff.calib = d
+        try:
+            yield stats
+        finally:
+            for layer in self.layers:
+                layer.pos_ff.calib = None
 
 
 class ConvReLUNorm(nn.Module):

@@ -3,14 +3,17 @@
 experiment config, exposed as an attribute-style dict.
 
 The port reads YAML itself, since the card's installation has no PyYAML.
-It reads the flat subset that `configs/*.yaml` use, one `key: value` per
+It reads the subset that `configs/*.yaml` use, one `key: value` per
 line: plain scalars resolved as PyYAML's safe loader resolves them (YAML
 1.1 ints, floats, booleans and nulls, else strings), single- and
-double-quoted strings, inline lists of those, and `#` comments. It also
-reads a top-level list of such flat mappings (`- key: value` opening each
-item, its other keys indented under the first), the shape of the server's
-model registry `app_models.yaml`. Anything else (nested maps, lists of
-scalars, anchors) raises ValueError.
+double-quoted strings, inline lists of those, and `#` comments. A key
+with no value followed by lines indented deeper opens a nested block
+mapping of the same kind (the shape of a Vocos hparams file:
+`backbone:` / `init_args:` / `dim: 512`). It also reads a top-level list
+of such mappings (`- key: value` opening each item, its other keys
+indented under the first), the shape of the server's model registry
+`app_models.yaml`. Anything else (flow maps, block lists below the top,
+anchors, tabs) raises ValueError.
 """
 from __future__ import annotations
 
@@ -128,33 +131,65 @@ def _value(text: str, line: str):
     return value
 
 
-def parse_yaml(text: str):
-    """The YAML subset above -> a dict, or a list of dicts."""
-    out, items, indent = {}, None, 0
+def _lines(text: str) -> list:
+    """(indent, line) of every line that is not blank or a comment."""
+    out = []
     for line in text.splitlines():
         stripped = line.strip()
         if not stripped or stripped.startswith("#"):
             continue
-        item = _ITEM.match(line)
-        if item is not None and not out:    # a new mapping of the list
-            items = [] if items is None else items
-            out_item = {}
-            items.append(out_item)
-            indent = 1 + len(item.group(1))
-            target, body = out_item, item.group(2)
-        elif items is not None:             # a key of the current mapping
-            if len(line) - len(line.lstrip(" ")) != indent:
-                raise ValueError(f"unsupported YAML line in a list of "
-                                 f"mappings: {line!r}")
-            target, body = items[-1], line[indent:]
-        else:
-            target, body = out, line
-        m = _KEY.match(body)
+        indent = len(line) - len(line.lstrip(" "))
+        if line[indent] == "\t":
+            raise ValueError(f"unsupported YAML indentation (tab): {line!r}")
+        out.append((indent, line))
+    return out
+
+
+def _mapping(lines: list, i: int, indent: int):
+    """The block mapping whose keys sit at column `indent`, from lines[i]
+    on; returns (dict, index of the first line after it)."""
+    out = {}
+    while i < len(lines):
+        col, line = lines[i]
+        if col < indent:
+            break
+        m = _KEY.match(line, col) if col == indent else None
         if m is None:
-            raise ValueError(f"unsupported YAML line (the port reads flat "
-                             f"`key: value` lines only): {line!r}")
-        target[m.group(1)] = _value(m.group(2), line)
-    return out if items is None else items
+            raise ValueError(f"unsupported YAML line (the port reads "
+                             f"`key: value` lines and nested block "
+                             f"mappings only): {line!r}")
+        rest = m.group(2).strip()
+        i += 1
+        if (rest == "" or rest.startswith("#")) and i < len(lines) \
+                and lines[i][0] > indent:
+            out[m.group(1)], i = _mapping(lines, i, lines[i][0])
+        else:
+            out[m.group(1)] = _value(rest, line)
+    return out, i
+
+
+def parse_yaml(text: str):
+    """The YAML subset above -> a dict, or a list of dicts."""
+    lines = _lines(text)
+    if not lines:
+        return {}
+    if _ITEM.match(lines[0][1]) is None:
+        out, end = _mapping(lines, 0, 0)
+        if end != len(lines):
+            raise ValueError(f"unsupported YAML line: {lines[end][1]!r}")
+        return out
+    items, i = [], 0
+    while i < len(lines):
+        col, line = lines[i]
+        item = _ITEM.match(line) if col == 0 else None
+        if item is None:
+            raise ValueError(f"unsupported YAML line in a list of "
+                             f"mappings: {line!r}")
+        indent = 1 + len(item.group(1))         # the item's first key
+        lines[i] = (indent, " " * indent + item.group(2))
+        mapping, i = _mapping(lines, i, indent)
+        items.append(mapping)
+    return items
 
 
 def load_yaml(path) -> DictConfig:

@@ -20,6 +20,7 @@ to the input's dtype at each call, so one f32 module serves bf16 too.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 from typing import Callable, Sequence, Tuple
 
@@ -166,8 +167,16 @@ class Generator(nn.Module):
             ch = ch_out
         self.conv_post = nn.Conv1d(ch, 1, 7)
 
-    def forward(self, mel: torch.Tensor) -> torch.Tensor:
-        """mel [B, T, num_mels] -> waveform [B, T*hop], in mel's dtype."""
+    def forward(self, mel: torch.Tensor,
+                resblock_override=None) -> torch.Tensor:
+        """mel [B, T, num_mels] -> waveform [B, T*hop], in mel's dtype.
+
+        resblock_override: a hook with `claims(channels) -> bool` and
+        `__call__(x, block, stage=, index=) -> y` (JAX
+        `generator_apply_pallas(..., resblock_override=)`): the MRF
+        ResBlocks of a stage whose width it claims run through it
+        (`ops.hifigan_int8`); the other stages run as they do without
+        one."""
         c = self.config
         n_k = len(c.resblock_kernel_sizes)
         x = conv1d_same(mel, self.conv_pre)
@@ -175,7 +184,13 @@ class Generator(nn.Module):
             x = F.leaky_relu(x, LRELU_SLOPE)
             x = conv_transpose_1d(x, up.weight, up.bias, up.stride[0],
                                   up.padding[0]).contiguous()
-            x = self._fuse(self.resblocks[i * n_k: (i + 1) * n_k], x)
+            blocks = self.resblocks[i * n_k: (i + 1) * n_k]
+            if (resblock_override is not None
+                    and resblock_override.claims(x.shape[-1])):
+                blocks = [functools.partial(resblock_override, block=b,
+                                            stage=i, index=j)
+                          for j, b in enumerate(blocks)]
+            x = self._fuse(blocks, x)
         # final activation uses torch's default 0.01 slope in the reference
         # (models.py:123)
         x = F.leaky_relu(x, 0.01)
@@ -184,10 +199,10 @@ class Generator(nn.Module):
 
     @staticmethod
     def _fuse(blocks, x: torch.Tensor) -> torch.Tensor:
-        """Multi-receptive-field fusion: the blocks' outputs on x, summed
-        in order and averaged. On the card block 0 runs on the caller's
-        stream and block j > 0 on side stream j, forked from it and joined
-        back before the sum. The last block (k = 11 in the published
+        """Multi-receptive-field fusion: the outputs of the blocks
+        (callables on x), summed in order and averaged. On the card block 0
+        runs on the caller's stream and block j > 0 on side stream j,
+        forked from it and joined back before the sum. The last block (k = 11 in the published
         configs, the longest) is queued first, for when the host is behind.
         Every allocation on a side stream happens after such a fork, so a
         block the caller freed is reused there only after the caller's
