@@ -4,8 +4,9 @@ kernel variant against its plain PyTorch version on the card, drives
 `FastPitch2Wave.tts()`, FastPitch training (`apps.train_fastpitch`), the
 serving surface (`stream()`, long-form, the vowelizers, the HTTP server
 and the inference CLI), `Tacotron2Wave` (tts(), its decode, stream(),
-the CLI and the server), the int8 path of both pipelines and the Vocos
-vocoder at full width, and checks what comes out.
+the CLI and the server), the int8 path of both pipelines, the Vocos
+vocoder, the adversarial FastPitch recipe and Tacotron2 training (MSE and
+adversarial) at full width, and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -170,12 +171,47 @@ Phases, one line each (and a table for the kernel checks):
    nested mappings and a `.pth` (decode = the module within 1e-5;
    copy-synthesis)
 
-Then nvidia-smi's line again, the kernels' JSON record (for each ResBlock
-variant its ms, plain_ms and bound_ms summed over the serving path's bf16
-launches, as timed in phase 3; for MAS the same sums over the training
-run's launches, as timed in phase 6; `tacotron2_launches` and
-`int8_launches`, each kernel's launches in phase 12's and phase 14's
-counted tts()), and last the result line. Any
+17. adversarial FastPitch: a new copy of phase 6's corpus with a config
+   from configs/nawar_fp_adv.yaml (gan 3.0, feat 1.0, betas (0, 0.99)
+   for both optimizers), `apps.train_fastpitch.main --adv` at full width
+   (FastPitchConfig() and PatchDiscriminator(32)), one epoch (6 steps of
+   batch 10) and 1 validation batch, PyTorch's default precision, the
+   launch counters set to 0 just before and read just after. Checks:
+   finite loss, loss_d, score and fmatch at every step, MAS launches =
+   steps + validation batches at phase 6's shapes, MAS bit-equal to
+   `align.mas.mas` at those shapes and lengths (and its ms there), every
+   generator and critic parameter and iteration vector moved, the
+   checkpoint restores model, optim, model_d, optim_d and spectral_d
+   equal. Prints steps/s over steps 2-6; then one steady step under
+   torch.profiler (MAS's share of the device time, the idle share, the
+   top ops) and the critic's work of a step replayed alone (CUDA events)
+   against that step's device busy time; then one f32 step (TF32 off,
+   dropouts off) on the card against the same step on the CPU from the
+   same weights and chunks (two rows of the first batch): loss terms
+   within STEP_LOSS_TOL relative, gradients within STEP_GRAD_TOL of their
+   norm, the critic's vectors within 1e-6
+18. Tacotron2 training: configs from nawar_tc2.yaml and nawar_tc2_adv.yaml
+   (the basic.yaml overlay: batch 8, clip 1.0) on the same corpus,
+   `apps.train_tacotron.main` at full width (Tacotron2Config()): 3 MSE
+   steps with validation, then 3 `--adv` steps (PatchDiscriminator(32),
+   gan 4.0, reading the postnet mel); no ResBlock or MAS launch. Checks:
+   finite losses, every parameter and BatchNorm statistic moved (and the
+   critic), the checkpoint restores model, optim, batch_stats (and
+   model_d, optim_d, spectral_d) equal. Prints each run's steps/s over
+   steps 2-3, one steady MSE step under torch.profiler (device busy,
+   idle share, top ops), and one f32 `--adv` step on the card against the
+   CPU (TF32 and every dropout off) at full width on the corpus's two
+   shortest utterances cut to T2_SHORT_FRAMES frames, at phase 17's
+   tolerances and BatchNorm statistics within 1e-5
+
+Then nvidia-smi's line again, the smoke's seconds, the kernels' JSON
+record (for each ResBlock variant its ms, plain_ms and bound_ms summed
+over the serving path's bf16 launches, as timed in phase 3; for MAS the
+same sums over the training run's launches, as timed in phase 6;
+`tacotron2_launches` and `int8_launches`, each kernel's launches in phase
+12's and phase 14's counted tts(); for MAS also `adversarial_launches`
+and `adversarial_ms`, phase 17's launches and their summed kernel ms),
+and last the result line. Any
 failure raises and the exit code is not 0; without a CUDA device the
 script exits 1 before printing any result.
 """
@@ -268,6 +304,14 @@ INT8_T2_STREAM_SNR = 40.0
 # phase 15 decodes this many steps (phase 12: 3000), the constructor's
 # calibration decodes included
 T2_INT8_STEPS = 1000
+# phases 17-18: a step on the card against the same step on the CPU (f32,
+# TF32 off): loss terms (relative), gradients (of their norm), as the CPU
+# parity tests against JAX hold them
+STEP_LOSS_TOL = 1e-5
+STEP_GRAD_TOL = 1e-4
+T2_STEPS = 3            # phase 18's steps of each recipe
+T2_SHORT_FRAMES = 192   # phase 18's card-vs-CPU batch: mels cut to this
+T_START = 0.0
 
 
 def log(msg: str) -> None:
@@ -700,7 +744,6 @@ def write_corpus(root: pathlib.Path) -> pathlib.Path:
     from tts_arabic_torch.audio.io import save_wav
     from tts_arabic_torch.data.dataset import (DEFAULT_LABEL_PATTERN,
                                                parse_label_line)
-    from tts_arabic_torch.runtime.config import load_yaml
     rng = np.random.default_rng(0)
     wavs = root / "wavs"
     wavs.mkdir(parents=True)
@@ -725,12 +768,23 @@ def write_corpus(root: pathlib.Path) -> pathlib.Path:
             raise AssertionError(f"{src}: {len(lines)} lines, expected {n}")
         (root / f"{split}.txt").write_text("\n".join(lines) + "\n")
     np.savez(root / "pitch_dict.npz", **f0_dict)
-    cfg = load_yaml(ROOT / "configs" / "nawar_fp.yaml")
-    cfg.update(log_dir=str(root / "logs"), checkpoint_dir=str(root / "ckpt"),
+    return corpus_config(root, "nawar_fp.yaml")
+
+
+def corpus_config(root: pathlib.Path, recipe: str, **over) -> pathlib.Path:
+    """configs/<recipe> with the corpus's paths, logs and checkpoints in
+    their own directories under `root`, and `over`; returns its path."""
+    from tts_arabic_torch.runtime.config import load_yaml
+    stem = recipe.removesuffix(".yaml")
+    wavs = root / "wavs"
+    cfg = load_yaml(ROOT / "configs" / recipe)
+    cfg.update(log_dir=str(root / f"logs_{stem}"),
+               checkpoint_dir=str(root / f"ckpt_{stem}"),
                train_wavs_path=str(wavs), train_labels=str(root / "train.txt"),
                test_wavs_path=str(wavs), test_labels=str(root / "test.txt"),
                f0_dict_path=str(root / "pitch_dict.npz"))
-    path = root / "nawar_fp_smoke.yaml"
+    cfg.update(over)
+    path = root / f"{stem}_smoke.yaml"
     path.write_text("".join(f"{k}: {json.dumps(v)}\n" for k, v in cfg.items()))
     return path
 
@@ -882,22 +936,8 @@ def phase_training(config_path, train: list, val: list, mas: dict,
     from tts_arabic_torch.train.trainer import Trainer
     torch.backends.cudnn.allow_tf32 = True          # PyTorch's defaults
     torch.backends.cuda.matmul.allow_tf32 = False
-    times, losses, mas_shapes = [], [], []
-    make_step, fused = train_fastpitch.make_fastpitch_train_step, \
-        mas_ops.mas_fused
-
-    def timed_step(**kw):
-        step = make_step(**kw)
-
-        def run(state, batch, seed):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            meta = step(state, batch, seed)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            losses.append(float(meta["loss"]))
-            return meta
-        return run
+    times, metas, mas_shapes = [], [], []
+    fused = mas_ops.mas_fused
 
     def recorded(log_attn, in_lens, out_lens):
         mas_shapes.append(tuple(log_attn.shape))
@@ -905,7 +945,8 @@ def phase_training(config_path, train: list, val: list, mas: dict,
 
     torch.cuda.reset_peak_memory_stats()
     with mock.patch.object(train_fastpitch, "make_fastpitch_train_step",
-                           timed_step), \
+                           timed_steps(steps.make_fastpitch_train_step,
+                                       times, metas, [])), \
             mock.patch.object(mas_ops, "mas_fused", recorded):
         rb.reset_launches()
         mas_ops.reset_launches()
@@ -917,13 +958,12 @@ def phase_training(config_path, train: list, val: list, mas: dict,
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     n_steps = len(train)
-    for i, (loss, t) in enumerate(zip(losses, times)):
-        log(f"    step {i + 1}: loss {loss:.4f}, {t * 1e3:.1f} ms")
+    for i, (m, t) in enumerate(zip(metas, times)):
+        log(f"    step {i + 1}: loss {m['loss']:.4f}, {t * 1e3:.1f} ms")
     if len(times) != n_steps or trainer.state.step != n_steps:
         raise AssertionError(f"{len(times)} steps timed, state at step "
                              f"{trainer.state.step}, expected {n_steps}")
-    if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"non-finite training loss: {losses}")
+    _finite(metas, ("loss",))
     want = [tuple(b["attn_prior"].shape) for b in train + val]
     if mas_shapes != want:
         raise AssertionError(f"MAS calls at {mas_shapes}, phase 6 checked "
@@ -2543,7 +2583,449 @@ def phase_vocos(smi: str, hifigan_rtf: float, tmp: pathlib.Path) -> None:
     torch.cuda.empty_cache()
 
 
+# ---- the adversarial recipes and Tacotron2 training --------------------------
+
+def timed_steps(make_step, times: list, metas: list, batches: list):
+    """A stand-in for a CLI's make-step function: each step it makes is
+    synchronized and timed on the host clock, its meta and batch kept."""
+    def make(**kw):
+        step = make_step(**kw)
+
+        def run(state, batch, seed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            meta = step(state, batch, seed)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            metas.append({k: float(v) for k, v in meta.items()})
+            batches.append(batch)
+            return meta
+        return run
+    return make
+
+
+def _finite(metas: list, keys) -> None:
+    bad = [(i, k, m.get(k)) for i, m in enumerate(metas) for k in keys
+           if not math.isfinite(m.get(k, math.nan))]
+    if bad:
+        raise AssertionError(f"non-finite or missing training terms: {bad}")
+
+
+def _rate(times: list) -> tuple[float, float]:
+    """Steps/s and ms a step over the steps after the first."""
+    steady = times[1:]
+    return len(steady) / sum(steady), sum(steady) / len(steady) * 1e3
+
+
+def _moved_critic(state, seed: int) -> None:
+    """Every critic parameter and iteration vector moved from its seeded
+    init."""
+    from tts_arabic_torch.train import gan, steps
+    init = gan.PatchDiscriminator(steps.CRITIC_CNUM)
+    u0 = gan.init_critic(init, seed)
+    still = _unmoved(state.critic, init) + [
+        k for k, u in state.spectral.items() if torch.equal(u.cpu(), u0[k])]
+    if still:
+        raise AssertionError(f"critic entries that did not move: {still}")
+
+
+def _restored(trainer, config_path, make_model, adv: bool) -> int:
+    """A fresh model (and critic) restored from the run's checkpoint:
+    every model entry, the optimizers' moments, the critic and its vectors
+    equal the trained ones; returns the restored step."""
+    from tts_arabic_torch.runtime.config import get_config
+    from tts_arabic_torch.train import steps
+    from tts_arabic_torch.train.trainer import Trainer
+    model = make_model().to("cuda")
+    state = steps.TrainState(model, steps.make_optimizer(model))
+    if adv:
+        steps.add_critic(state, get_config(config_path), 7, "cuda")
+    fresh = Trainer(None, state, log_dir=trainer.ckpt.directory / "restore",
+                    checkpoint_dir=trainer.ckpt.directory, device="cuda")
+    step = fresh.restore()
+    fresh.close()
+    old = trainer.state
+    pairs = [("model", old.model.state_dict(), model.state_dict())]
+    pairs.append(("optim", {str(k): v["exp_avg"] for k, v in
+                            old.optimizer.state_dict()["state"].items()},
+                  {str(k): v["exp_avg"] for k, v in
+                   state.optimizer.state_dict()["state"].items()}))
+    if adv:
+        pairs += [("model_d", old.critic.state_dict(),
+                   state.critic.state_dict()),
+                  ("spectral_d", old.spectral, state.spectral),
+                  ("optim_d",
+                   {str(k): v["exp_avg_sq"] for k, v in
+                    old.d_optimizer.state_dict()["state"].items()},
+                   {str(k): v["exp_avg_sq"] for k, v in
+                    state.d_optimizer.state_dict()["state"].items()})]
+    differ = [f"{what}.{k}" for what, a, b in pairs for k in a
+              if k not in b or not torch.equal(a[k], b[k])]
+    if step != old.step or differ:
+        raise AssertionError(f"checkpoint restored step {step} (trained "
+                             f"{old.step}), entries that differ: {differ}")
+    return step
+
+
+def _profile_line(label: str, got, smi: str, extra=None) -> dict:
+    """Logs a `profiled` result; `extra(by_name, busy)` adds to the
+    line."""
+    if got is None:
+        log(f"{label} under torch.profiler: no device events recorded, "
+            f"breakdown not measured | {smi}")
+        return {}
+    wall, by_name, busy, n_ops = got
+    dev_ms = sum(by_name.values())
+    extra = "" if extra is None else extra(by_name, busy)
+    log(f"{label} under torch.profiler: wall {wall * 1e3:.1f} ms, device "
+        f"busy {busy:.1f} ms (idle {100 * (1 - busy / 1e3 / wall):.1f}% of "
+        f"the wall), {n_ops} device ops summing {dev_ms:.1f} ms{extra} | "
+        f"top: " + "; ".join(f"{n} {v:.2f} ms"
+                             for n, v in by_name.most_common(8))
+        + f" | {smi}")
+    return dict(wall=wall, by_name=by_name, busy=busy, dev_ms=dev_ms)
+
+
+def critic_alone_ms(state, batch: dict) -> float:
+    """The critic's device work in one adversarial step, replayed alone at
+    the step's shapes on a copy of the critic (CUDA events): its update
+    (the real and the fake pass, backward, clip, AdamW) and the
+    generator's pass through it (forward, backward to its input)."""
+    from tts_arabic_torch.train import steps
+    st = steps.TrainState(None, None, critic=copy.deepcopy(state.critic),
+                          spectral=dict(state.spectral))
+    st.d_optimizer = steps.make_optimizer(st.critic, 1e-4)
+    b = steps.batch_to_device(batch, "cuda")
+    fake = b["mel_tgt"] + 0.1       # stands in for the generator's mel
+    c = steps._Critic(st, batch, "cuda", 0, None)
+
+    def run():
+        c.update(b["mel_tgt"], fake)
+        x = fake.detach().requires_grad_()
+        c.generator_terms(x, 0.0, {}, 3.0, 1.0).backward()
+    return cuda_ms(run)
+
+
+def _rows(batch: dict, n: int) -> dict:
+    return {k: np.asarray(v)[:n] for k, v in batch.items()}
+
+
+def _card_vs_cpu(make_state, make_step, batch: dict, label: str,
+                 stats: bool, smi: str) -> None:
+    """One f32 step (TF32 off) from the same weights, batch, seed and
+    chunks on the card and on the CPU: loss terms within STEP_LOSS_TOL
+    relative, gradients (after the clip) within STEP_GRAD_TOL of their
+    norm, the critic's vectors within 1e-6, BatchNorm's running statistics
+    within 1e-5."""
+    set_tf32(False)
+    precision = tf32_state()
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        state = make_state(dev)
+        t0 = time.perf_counter()
+        meta = make_step(device=dev)(state, batch, 0)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        grads = {n: p.grad.detach().cpu() for n, p in
+                 state.model.named_parameters() if p.grad is not None}
+        extra = {f"u.{k}": u.cpu() for k, u in (state.spectral or {}).items()}
+        if stats:
+            extra.update({k: v.cpu() for k, v in
+                          state.model.state_dict().items() if "running" in k})
+        runs[dev] = ({k: float(v) for k, v in meta.items()}, grads, extra,
+                     secs)
+    set_tf32(True)
+    torch.backends.cuda.matmul.allow_tf32 = False   # PyTorch's defaults
+    (m_c, g_c, x_c, s_c), (m_g, g_g, x_g, s_g) = runs["cpu"], runs["cuda"]
+    loss_err = max(abs(m_g[k] - v) / max(abs(v), 1e-12)
+                   for k, v in m_c.items())
+    diff = math.sqrt(sum(float((g_g[n] - g).pow(2).sum())
+                         for n, g in g_c.items()))
+    norm = math.sqrt(sum(float(g.pow(2).sum()) for g in g_c.values()))
+    u_err = max([float((x_g[k] - v).abs().max()) for k, v in x_c.items()
+                 if k.startswith("u.")] or [0.0])
+    s_err = max([float((x_g[k] - v).abs().max()) for k, v in x_c.items()
+                 if "running" in k] or [0.0])
+    log(f"    {label}: card vs CPU, one f32 step ({precision} on the "
+        f"card), batch {tuple(np.asarray(batch['mel_tgt']).shape)}: loss "
+        f"{m_g['loss']!r} vs {m_c['loss']!r}, max relative error of the "
+        f"{len(m_c)} terms {loss_err:.2e} (<= {STEP_LOSS_TOL:.0e}) | "
+        f"|g_card - g_cpu| {diff:.3e} of |g| {norm:.3e} (<= "
+        f"{STEP_GRAD_TOL:.0e}) over {len(g_c)} tensors | vectors "
+        f"{u_err:.2e} (<= 1e-6) | running statistics {s_err:.2e} (<= 1e-5)"
+        f" | card {s_g * 1e3:.1f} ms, CPU {s_c * 1e3:.1f} ms | {smi}")
+    if (m_c.keys() != m_g.keys() or g_c.keys() != g_g.keys()
+            or loss_err > STEP_LOSS_TOL or not diff <= STEP_GRAD_TOL * norm
+            or u_err > 1e-6 or s_err > 1e-5):
+        raise AssertionError(f"{label}: the card's step differs from the "
+                             "CPU's")
+
+
+def phase_adversarial(root: pathlib.Path, smi: str) -> dict:
+    """Phase 17: `train_fastpitch --adv` (see the module docstring)."""
+    import dataclasses
+
+    from tts_arabic_torch.apps import train_fastpitch
+    from tts_arabic_torch.models.fastpitch import FastPitch, FastPitchConfig
+    from tts_arabic_torch.models.layers import init_weights
+    from tts_arabic_torch.ops import mas as mas_ops
+    from tts_arabic_torch.ops import resblock as rb
+    from tts_arabic_torch.runtime.config import get_config
+    from tts_arabic_torch.train import gan, steps
+    torch.backends.cudnn.allow_tf32 = True          # PyTorch's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config_path = corpus_config(root, "nawar_fp_adv.yaml")
+    train, val = training_batches(config_path)
+    times, metas, batches, mas_shapes = [], [], [], []
+    fused = mas_ops.mas_fused
+
+    def recorded(log_attn, in_lens, out_lens):
+        mas_shapes.append(tuple(log_attn.shape))
+        return fused(log_attn, in_lens, out_lens)
+
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(train_fastpitch, "make_fastpitch_train_step",
+                           timed_steps(steps.make_fastpitch_train_step,
+                                       times, metas, batches)), \
+            mock.patch.object(mas_ops, "mas_fused", recorded):
+        rb.reset_launches()
+        mas_ops.reset_launches()
+        trainer = train_fastpitch.main([
+            "--config", str(config_path), "--adv", "--epochs", "1",
+            "--log-every", "1", "--device", "cuda"])
+        torch.cuda.synchronize()
+        launches = {**rb.LAUNCHES, **mas_ops.LAUNCHES}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for i, (m, t) in enumerate(zip(metas, times)):
+        log(f"    step {i + 1}: loss {m['loss']:.4f} (critic {m['loss_d']:.4f}"
+            f", score {m['score']:.4f}, fmatch {m['fmatch']:.4f}), "
+            f"{t * 1e3:.1f} ms")
+    n_steps = len(train)
+    if len(times) != n_steps or trainer.state.step != n_steps:
+        raise AssertionError(f"{len(times)} adversarial steps, state at "
+                             f"{trainer.state.step}, expected {n_steps}")
+    _finite(metas, ("loss", "loss_d", "score", "fmatch", "grad_norm"))
+    want = [tuple(b["attn_prior"].shape) for b in train + val]
+    if mas_shapes != want or launches["mas"] != len(want):
+        raise AssertionError(f"MAS calls at {mas_shapes}, {launches['mas']} "
+                             f"launches; expected {want}")
+    if sum(rb.LAUNCHES.values()):
+        raise AssertionError(f"ResBlock launches in training: {rb.LAUNCHES}")
+    # MAS at the run's shapes and lengths: bit-equal, and its time
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    mas_ms = max_err = 0.0
+    for i, batch in enumerate(train + val):
+        inputs = _mas_inputs(tuple(batch["attn_prior"].shape), gen,
+                             batch["token_lens"], batch["mel_lens"])
+        max_err = max(max_err, _mas_check(inputs, f"adversarial run {i}"))
+        mas_ms += cuda_ms(lambda: mas_ops.mas_fused(*inputs))
+    seed = trainer.seed
+    _moved_critic(trainer.state, seed + 1)
+    still = _unmoved(trainer.state.model,
+                     init_weights(FastPitch(FastPitchConfig()), seed))
+    if any(not n.startswith("attention.attn_proj") for n in still):
+        raise AssertionError(f"parameters that did not move: {still}")
+    rows = [json.loads(ln) for ln in (pathlib.Path(
+        trainer.logger.log_dir) / "metrics.jsonl").read_text().splitlines()]
+    val_loss = [r["val/loss"] for r in rows if "val/loss" in r]
+    if len(val_loss) != 1 or not math.isfinite(val_loss[0]):
+        raise AssertionError(f"validation losses {val_loss}")
+    restored = _restored(trainer, config_path, FastPitch, adv=True)
+    rate, step_ms = _rate(times)
+    cfg = get_config(config_path)
+    log(f"[17 adversarial fastpitch] train_fastpitch.main --adv, "
+        f"FastPitchConfig() + PatchDiscriminator({steps.CRITIC_CNUM}), "
+        f"nawar_fp_adv.yaml recipe (gan {cfg.gan_loss_weight}, feat "
+        f"{cfg.feat_loss_weight}, betas ({cfg.g_beta1}, {cfg.g_beta2})), f32,"
+        f" {tf32_state()}: {n_steps} steps of batch "
+        f"{sorted({s[0] for s in want[:n_steps]})} (T_mel <= "
+        f"{max(s[1] for s in want[:n_steps])}) + {len(val)} validation "
+        f"batch(es), val loss {val_loss[0]:.4f} | steps 2-{n_steps}: "
+        f"{rate:.2f} steps/s, {step_ms:.1f} ms a step | MAS: "
+        f"{launches['mas']} launches, bit-equal to the plain version at the "
+        f"run's {len(want)} shapes (max err {max_err}), {mas_ms:.3f} ms for "
+        f"them = {mas_ms / (len(want)) :.3f} ms a launch | critic and its "
+        f"vectors moved | checkpoint step {restored} restores model, optim,"
+        f" model_d, optim_d, spectral_d equal | peak memory {peak_gb:.2f} GB"
+        f" | {smi}")
+
+    # one more step at the first batch, under the profiler
+    state, batch = trainer.state, batches[0]
+    step = steps.make_fastpitch_train_step(device="cuda")
+    step(state, batch, 1)
+    got = profiled(lambda: step(state, batch, 2))
+    critic_ms = critic_alone_ms(state, batch)
+
+    def shares(by_name, busy):
+        mas = sum(v for n, v in by_name.items() if "mas_kernel" in n)
+        return (f" | MAS kernel {mas:.4f} ms = "
+                f"{100 * mas / sum(by_name.values()):.3f}% of the device "
+                f"time | the critic's work replayed alone (CUDA events) "
+                f"{critic_ms:.2f} ms = {100 * critic_ms / busy:.1f}% of the "
+                f"step's device busy time")
+    prof = _profile_line(
+        f"[17 profile] one steady adversarial step at "
+        f"{tuple(batch['attn_prior'].shape)}", got, smi, shares)
+
+    # card vs CPU, full width, dropouts off, two rows of the first batch
+    nodrop = dataclasses.replace(FastPitchConfig(), **{
+        f.name: 0.0 for f in dataclasses.fields(FastPitchConfig)
+        if "drop" in f.name})
+    base = init_weights(FastPitch(nodrop), 0)
+    critic = gan.PatchDiscriminator(steps.CRITIC_CNUM)
+    spec = gan.init_critic(critic, 1)
+
+    def make_state(dev):
+        model, d = copy.deepcopy(base).to(dev), copy.deepcopy(critic).to(dev)
+        return steps.TrainState(
+            model, steps.make_optimizer(model), critic=d,
+            d_optimizer=steps.make_optimizer(d),
+            spectral={k: u.to(dev) for k, u in spec.items()})
+    _card_vs_cpu(make_state, steps.make_fastpitch_train_step,
+                 _rows(train[0], 2), "[17 check] FastPitch --adv", False, smi)
+    del trainer, state
+    torch.cuda.empty_cache()
+    return dict(launches=launches["mas"], mas_ms=mas_ms, rate=rate,
+                step_ms=step_ms, critic_ms=critic_ms, profile=prof)
+
+
+def t2_short_batch(config_path) -> dict:
+    """The corpus's two shortest utterances, their mels cut to
+    T2_SHORT_FRAMES frames, collated for Tacotron2."""
+    from tts_arabic_torch.data import ArabDataset, collate_tacotron
+    from tts_arabic_torch.runtime.config import get_config
+    cfg = get_config(config_path)
+    ds = ArabDataset(cfg.train_labels, cfg.train_wavs_path,
+                     label_pattern=cfg.label_pattern)
+    items = sorted((ds[i] for i in range(len(ds))),
+                   key=lambda it: it[1].shape[1])[:2]
+    return collate_tacotron([(t, m[:, :T2_SHORT_FRAMES]) for t, m in items])
+
+
+def _t2_run(train_tacotron, config_path, flags: list) -> tuple:
+    from tts_arabic_torch.ops import mas as mas_ops
+    from tts_arabic_torch.ops import resblock as rb
+    from tts_arabic_torch.train import steps
+    times, metas, batches = [], [], []
+    with mock.patch.object(train_tacotron, "make_tacotron_train_step",
+                           timed_steps(steps.make_tacotron_train_step,
+                                       times, metas, batches)):
+        rb.reset_launches()
+        mas_ops.reset_launches()
+        trainer = train_tacotron.main([
+            "--config", str(config_path), "--max-steps", str(T2_STEPS),
+            "--log-every", "1", "--device", "cuda"] + flags)
+        torch.cuda.synchronize()
+        launched = sum(rb.LAUNCHES.values()) + mas_ops.LAUNCHES["mas"]
+    if launched:
+        raise AssertionError(f"Tacotron2 training launched {launched} "
+                             "ResBlock or MAS kernels")
+    if len(times) != T2_STEPS or trainer.state.step != T2_STEPS:
+        raise AssertionError(f"{len(times)} Tacotron2 steps, expected "
+                             f"{T2_STEPS}")
+    return trainer, times, metas, batches
+
+
+def phase_tacotron_training(root: pathlib.Path, smi: str) -> dict:
+    """Phase 18: `train_tacotron` and `train_tacotron --adv` (see the
+    module docstring)."""
+    import dataclasses
+
+    from tts_arabic_torch.apps import train_tacotron
+    from tts_arabic_torch.models import tacotron2 as t2
+    from tts_arabic_torch.train import steps
+    torch.backends.cudnn.allow_tf32 = True          # PyTorch's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mse_path = corpus_config(root, "nawar_tc2.yaml")
+    adv_path = corpus_config(root, "nawar_tc2_adv.yaml", test_labels="")
+    out = {}
+    for label, path, flags in (("mse", mse_path, []),
+                               ("adv", adv_path, ["--adv"])):
+        trainer, times, metas, batches = _t2_run(train_tacotron, path, flags)
+        keys = ["loss", "mel_loss", "post_mel_loss", "gate_loss",
+                "grad_norm"] + (["loss_d", "score", "fmatch"] if flags else [])
+        _finite(metas, keys)
+        for i, (m, t) in enumerate(zip(metas, times)):
+            log(f"    {label} step {i + 1}: loss {m['loss']:.4f}, grad norm "
+                f"{m['grad_norm']:.3f}" + (f", critic {m['loss_d']:.4f}, "
+                                           f"score {m['score']:.4f}"
+                                           if flags else "")
+                + f", {t * 1e3:.1f} ms")
+        model = trainer.state.model
+        init = t2.init_tacotron2(t2.Tacotron2(model.config), trainer.seed)
+        stats = [k for k, v in init.state_dict().items() if "running" in k
+                 and torch.equal(v, model.state_dict()[k].cpu())]
+        if stats:
+            raise AssertionError(f"BatchNorm statistics that did not move: "
+                                 f"{stats}")
+        still = _unmoved(model, init)
+        if still:
+            raise AssertionError(f"parameters that did not move: {still}")
+        if flags:
+            _moved_critic(trainer.state, trainer.seed + 1)
+        rows = [json.loads(ln) for ln in (pathlib.Path(
+            trainer.logger.log_dir) / "metrics.jsonl").read_text(
+        ).splitlines()]
+        val_loss = [r["val/loss"] for r in rows if "val/loss" in r]
+        if len(val_loss) != (0 if flags else 1) or not all(
+                math.isfinite(v) for v in val_loss):
+            raise AssertionError(f"{label}: validation losses {val_loss}")
+        restored = _restored(trainer, path,
+                             lambda: t2.Tacotron2(model.config), bool(flags))
+        rate, step_ms = _rate(times)
+        shapes = [tuple(np.asarray(b["mel_tgt"]).shape[:2]) for b in batches]
+        c = model.config
+        log(f"[18 tacotron2 training{' --adv' if flags else ''}] "
+            f"train_tacotron.main{' --adv' if flags else ''}, "
+            f"Tacotron2Config() (encoder {c.encoder_embedding_dim}, LSTMs "
+            f"{c.attention_rnn_dim}/{c.decoder_rnn_dim}, postnet "
+            f"{c.postnet_n_convolutions} x {c.postnet_embedding_dim})"
+            f"{' + PatchDiscriminator(32)' if flags else ''}, "
+            f"{pathlib.Path(path).name.replace('_smoke', '')} recipe (clip "
+            f"{trainer.state.optimizer.grad_clip}), f32, {tf32_state()}: "
+            f"{T2_STEPS} steps at [B, T_mel] {shapes}"
+            + (f" + validation, val loss {val_loss[0]:.4f}" if val_loss
+               else "") + f" | steps 2-{T2_STEPS}: {rate:.3f} steps/s, "
+            f"{step_ms:.1f} ms a step | BatchNorm statistics moved | "
+            f"checkpoint step {restored} restores model, optim, "
+            f"batch_stats{', model_d, optim_d, spectral_d' if flags else ''}"
+            f" equal | {smi}")
+        out[label] = dict(rate=rate, step_ms=step_ms)
+        if not flags:
+            state, batch = trainer.state, batches[0]
+            step = steps.make_tacotron_train_step(device="cuda")
+            got = profiled(lambda: step(state, batch, 1))
+            out["profile"] = _profile_line(
+                f"[18 profile] one steady MSE step at {shapes[0]}", got, smi)
+        del trainer
+        torch.cuda.empty_cache()
+
+    # card vs CPU at full width on a short batch, dropouts off
+    nodrop = t2.Tacotron2Config(prenet_dropout=0.0, attention_dropout=0.0,
+                                decoder_dropout=0.0)
+    base = t2.init_tacotron2(t2.Tacotron2(nodrop), 0)
+    from tts_arabic_torch.train import gan
+    critic = gan.PatchDiscriminator(steps.CRITIC_CNUM)
+    spec = gan.init_critic(critic, 1)
+
+    def make_state(dev):
+        model, d = copy.deepcopy(base).to(dev), copy.deepcopy(critic).to(dev)
+        return steps.TrainState(
+            model, steps.make_optimizer(model, 1e-3, grad_clip=1.0),
+            critic=d, d_optimizer=steps.make_optimizer(d),
+            spectral={k: u.to(dev) for k, u in spec.items()})
+    with mock.patch.object(t2.Tacotron2, "_dropout",
+                           lambda self, x, rate, gen: x):
+        _card_vs_cpu(make_state, steps.make_tacotron_train_step,
+                     t2_short_batch(mse_path), "[18 check] Tacotron2 --adv",
+                     True, smi)
+    return out
+
+
 def main() -> int:
+    global T_START
+    T_START = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs on the GPU",
               file=sys.stderr)
@@ -2591,6 +3073,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="smoke_vocos_",
                                      dir=build_dir) as tmp:
         phase_vocos(smi, bf16_rtf, pathlib.Path(tmp))
+    with tempfile.TemporaryDirectory(prefix="smoke_train_",
+                                     dir=build_dir) as tmp:
+        t0 = time.perf_counter()
+        write_corpus(pathlib.Path(tmp))
+        adv = phase_adversarial(pathlib.Path(tmp), smi)
+        phase_tacotron_training(pathlib.Path(tmp), smi)
+        log(f"[17-18] the two phases and their corpus: "
+            f"{time.perf_counter() - t0:.1f} s")
     replaces = {
         "resblock1_wide": "tts_arabic_tpu/ops/hifigan_pallas.py:153",
         "resblock1_narrow": "tts_arabic_tpu/ops/hifigan_pallas.py:547",
@@ -2619,8 +3109,11 @@ def main() -> int:
         **{k: sum(r[k] for r in mas["rows"])
            for k in ("ms", "plain_ms", "bound_ms")},
         "bound_by": "bytes", "library_ms": None, "tacotron2_launches": 0,
-        "int8_launches": 0})
+        "int8_launches": 0, "adversarial_launches": adv["launches"],
+        "adversarial_ms": adv["mas_ms"]})
     log(smi)
+    log(f"[smoke] every phase passed in {time.perf_counter() - T_START:.1f} "
+        "s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -684,3 +684,147 @@ def test_vocos_matches_its_cpu_run(cuda):
         got = card(mel.to(cuda), card.bias_vector(), 0.005).cpu()
     assert got.shape == want.shape == (2, 300 * 256)
     assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
+
+
+def _adv_batch(B=3, T_txt=24, T_mel=192, seed=0):
+    """A FastPitch batch whose rows are shorter than a critic chunk
+    (negative offsets) and longer."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    token_lens = np.array([24, 15, 6], np.int32)[:B]
+    mel_lens = np.array([192, 100, 40], np.int32)[:B]
+    tokens = rng.integers(1, 40, (B, T_txt)).astype(np.int32)
+    mel = rng.standard_normal((B, T_mel, 80)).astype(np.float32) - 4.0
+    for i, (nt, nm) in enumerate(zip(token_lens, mel_lens)):
+        tokens[i, nt:] = 0
+        mel[i, nm:] = 0.0
+    return {"tokens": tokens, "token_lens": token_lens, "mel_tgt": mel,
+            "mel_lens": mel_lens,
+            "pitch_dense": rng.standard_normal((B, 1, T_mel)).astype(
+                np.float32),
+            "energy_dense": np.abs(rng.standard_normal((B, T_mel))).astype(
+                np.float32),
+            "attn_prior": np.full((B, T_mel, T_txt), 1.0 / T_txt,
+                                  np.float32)}
+
+
+@pytest.mark.cuda
+def test_adversarial_step_on_the_card_matches_the_cpu(cuda):
+    """One adversarial FastPitch step (the critic's update, then the
+    generator's against the updated critic) on the card and on the CPU from
+    the same weights, batch and chunks (the step draws them on the CPU),
+    dropouts off: equal MAS (one kernel launch), loss terms within 1e-4
+    relative, critic parameters within 1e-5, vectors within 1e-6."""
+    import copy
+    import dataclasses
+
+    from tts_arabic_torch.models.fastpitch import FastPitch, FastPitchConfig
+    from tts_arabic_torch.models.layers import init_weights
+    from tts_arabic_torch.ops import mas as mas_ops
+    from tts_arabic_torch.train import gan, steps
+    cfg = FastPitchConfig(d_model=64, enc_n_layers=2, dec_n_layers=2,
+                          enc_filter_size=128, dec_filter_size=128)
+    cfg = dataclasses.replace(cfg, **{f.name: 0.0 for f in
+                                      dataclasses.fields(cfg)
+                                      if "drop" in f.name})
+    base = init_weights(FastPitch(cfg), 0)
+    critic = gan.PatchDiscriminator(8)
+    spectral = gan.init_critic(critic, 1)
+    runs = {}
+    for dev in ("cpu", cuda):
+        model = copy.deepcopy(base).to(dev)
+        d = copy.deepcopy(critic).to(dev)
+        state = steps.TrainState(
+            model, steps.make_optimizer(model, 1e-4), critic=d,
+            d_optimizer=steps.make_optimizer(d, 1e-4),
+            spectral={k: v.to(dev) for k, v in spectral.items()})
+        before = mas_ops.LAUNCHES["mas"]
+        meta = steps.make_fastpitch_train_step(device=dev)(
+            state, _adv_batch(), 3)
+        torch.cuda.synchronize()
+        launched = mas_ops.LAUNCHES["mas"] - before
+        runs[str(dev)] = (meta, state, launched)
+    (m_cpu, s_cpu, n_cpu), (m_gpu, s_gpu, n_gpu) = runs["cpu"], runs["cuda"]
+    assert (n_cpu, n_gpu) == (0, 1)
+    assert set(m_cpu) == set(m_gpu) and "loss_d" in m_gpu
+    for k in m_cpu:
+        assert torch.isfinite(m_gpu[k])
+        torch.testing.assert_close(m_gpu[k].cpu(), m_cpu[k], rtol=1e-4,
+                                   atol=1e-6, msg=k)
+    for name, v in s_cpu.critic.state_dict().items():
+        torch.testing.assert_close(s_gpu.critic.state_dict()[name].cpu(), v,
+                                   rtol=0, atol=1e-5, msg=name)
+    for k, u in s_cpu.spectral.items():
+        torch.testing.assert_close(s_gpu.spectral[k].cpu(), u, rtol=0,
+                                   atol=1e-6, msg=k)
+
+
+@pytest.mark.cuda
+def test_short_mel_chunks_on_the_card(cuda):
+    """Mels shorter than a chunk give negative offsets: the gather wraps
+    and clamps on the card as on the CPU (no device-side assert), and the
+    gradient reaches the same frames."""
+    from tts_arabic_torch.train import gan
+    g = torch.Generator().manual_seed(0)
+    mel = torch.randn((4, 64, 80), generator=g)
+    lens = torch.tensor([64, 40, 9, 1])
+    ids, ofx = gan.sample_chunk_params(torch.Generator().manual_seed(1), 4,
+                                       lens, gan.CHUNK_LEN)
+    assert (ofx < 0).all()
+    out = {}
+    for dev in ("cpu", cuda):
+        x = mel.to(dev).detach().requires_grad_()
+        chunks = gan.extract_chunks(x, ofx.to(dev), ids.to(dev),
+                                    gan.CHUNK_LEN)
+        (chunks * 2.0).sum().backward()
+        torch.cuda.synchronize()
+        out[str(dev)] = (chunks.detach().cpu(), x.grad.cpu())
+    assert torch.equal(out["cpu"][0], out["cuda"][0])
+    assert torch.equal(out["cpu"][1], out["cuda"][1])
+
+
+@pytest.mark.cuda
+def test_tacotron2_train_forward_on_the_card_matches_the_cpu(cuda):
+    """The Tacotron2 training forward (dropouts off: the config's rates 0
+    and the conv-block dropout patched out) and one step's BatchNorm
+    statistics on the card, TF32 off, against the CPU: outputs within
+    1e-4 of their peak, statistics within 1e-5; the backward runs through
+    cuDNN's packed LSTM."""
+    import copy
+    from unittest import mock
+
+    from tts_arabic_torch.models import tacotron2 as t2
+    cfg = t2.Tacotron2Config(symbol_embedding_dim=64,
+                             encoder_embedding_dim=64, decoder_rnn_dim=128,
+                             attention_rnn_dim=128, prenet_dim=32,
+                             postnet_embedding_dim=64, prenet_dropout=0.0,
+                             attention_dropout=0.0, decoder_dropout=0.0)
+    base = t2.init_tacotron2(t2.Tacotron2(cfg), 0)
+    g = torch.Generator().manual_seed(0)
+    B, T_txt, T_mel = 3, 20, 96
+    tokens = torch.randint(1, 40, (B, T_txt), generator=g)
+    token_lens = torch.tensor([20, 13, 5])
+    mel = torch.randn((B, T_mel, 80), generator=g) - 4.0
+    mel_lens = torch.tensor([96, 70, 33])
+    outs = {}
+    with mock.patch.object(t2.Tacotron2, "_dropout",
+                           lambda self, x, rate, gen: x):
+        for dev in ("cpu", cuda):
+            model = copy.deepcopy(base).to(dev).train()
+            got = model.forward_train(tokens.to(dev), token_lens,
+                                      mel.to(dev), mel_lens.to(dev))
+            got[1].square().mean().backward()
+            outs[str(dev)] = ([o.detach().cpu() for o in got],
+                              {k: v.cpu() for k, v in
+                               model.state_dict().items()},
+                              model.embedding.weight.grad.cpu())
+    (o_cpu, sd_cpu, g_cpu), (o_gpu, sd_gpu, g_gpu) = outs["cpu"], outs["cuda"]
+    for a, b in zip(o_gpu, o_cpu):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    for k, v in sd_cpu.items():
+        if "running" in k:
+            assert not torch.equal(v, base.state_dict()[k]), k
+            torch.testing.assert_close(sd_gpu[k], v, rtol=0, atol=1e-5,
+                                       msg=k)
+    assert float((g_gpu - g_cpu).abs().max()) <= 1e-4 * float(
+        g_cpu.abs().max())

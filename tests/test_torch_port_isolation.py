@@ -47,6 +47,7 @@ def test_module_walk_reaches_every_sub_package():
         assert f"tts_arabic_torch.{sub}" in names, sub
     for mod in ("align.mas", "align.prior", "apps.html_report",
                 "apps.inference", "apps.server", "apps.train_fastpitch",
+                "apps.train_tacotron", "train.gan",
                 "data.dataset", "data.f0", "diacritizers.models",
                 "eval.alignment", "infer.longform", "infer.tacotron_pipeline",
                 "models.tacotron2", "ops.ctc", "ops.mas",
@@ -86,16 +87,22 @@ def test_entry_points_raise_without_cuda(entry, monkeypatch):
         cls(device="cuda")
 
 
-def test_training_cli_raises_without_cuda(monkeypatch):
+@pytest.mark.parametrize("cli,flags", [
+    ("train_fastpitch", []), ("train_fastpitch", ["--adv"]),
+    ("train_tacotron", []), ("train_tacotron", ["--adv"])])
+def test_training_cli_raises_without_cuda(monkeypatch, cli, flags):
     """`--device` defaults to cuda; without a card the CLI raises before it
     reads its config or its corpus."""
-    from tts_arabic_torch.apps import train_fastpitch
+    import importlib
+    main = importlib.import_module(f"tts_arabic_torch.apps.{cli}").main
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        train_fastpitch.main(["--config", "no/such/config.yaml"])
+        main(["--config", "no/such/config.yaml"] + flags)
 
 
-@pytest.mark.parametrize("entry", ["train_step", "eval_step", "Trainer"])
+@pytest.mark.parametrize("entry", ["train_step", "eval_step", "Trainer",
+                                   "tacotron_train_step",
+                                   "tacotron_eval_step"])
 def test_training_entry_points_raise_without_cuda(entry, monkeypatch,
                                                   tmp_path):
     from tts_arabic_torch.train import steps
@@ -103,6 +110,8 @@ def test_training_entry_points_raise_without_cuda(entry, monkeypatch,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     make = {"train_step": steps.make_fastpitch_train_step,
             "eval_step": steps.make_fastpitch_eval_step,
+            "tacotron_train_step": steps.make_tacotron_train_step,
+            "tacotron_eval_step": steps.make_tacotron_eval_step,
             "Trainer": lambda **kw: Trainer(
                 None, None, log_dir=tmp_path / "logs",
                 checkpoint_dir=tmp_path / "ckpt", **kw)}[entry]

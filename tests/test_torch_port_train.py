@@ -4,7 +4,9 @@ on the CPU, on the tiny config of `tests/test_train_steps.py` with every
 dropout rate 0 (flax's dropout is then the identity, and so is the port's).
 Weights, and the JAX gradients, cross over with
 `models.convert.fastpitch_params_to_torch`. Inputs are made with numpy from
-a seed. Then one epoch of the port's training CLI on a synthetic corpus.
+a seed. Then one epoch of the port's training CLI on a synthetic corpus,
+with the MSE recipe and with `--adv` (the adversarial steps themselves are
+held against JAX in `tests/test_torch_port_gan.py`).
 
 Tolerances: forward outputs 1e-4 (f32 reassociation through the layers),
 loss terms 1e-5 relative, every gradient within 1e-4 of its norm, the
@@ -42,6 +44,16 @@ FWD_TOL = dict(rtol=1e-4, atol=1e-4)
 OUT_KEYS = ("mel_out", "dur_pred", "log_dur_pred", "dur_tgt", "pitch_pred",
             "pitch_tgt", "energy_pred", "energy_tgt", "attn_soft",
             "attn_logprob")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while this module runs: the suite runs several
+    pytest workers at once."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _batch(seed=0, B=3, T_txt=16, T_mel=128):
@@ -311,10 +323,10 @@ def corpus(tmp_path_factory):
     return root, wav_dir
 
 
-def _write_config(root, wav_dir, tmp_path):
-    """The nawar_fp.yaml recipe in the flat YAML the port reads, with the
-    corpus's paths and one bucket of batch 2; no f0 dict, so the dataset
-    runs pYIN on the fly."""
+def _write_config(root, wav_dir, tmp_path, adv=False):
+    """The nawar_fp.yaml recipe (nawar_fp_adv.yaml's with `adv`) in the flat
+    YAML the port reads, with the corpus's paths and one bucket of batch
+    2; no f0 dict, so the dataset runs pYIN on the fly."""
     cfg = {
         "restore_model": "", "log_dir": str(tmp_path / "logs"),
         "checkpoint_dir": str(tmp_path / "ckpt"),
@@ -327,6 +339,9 @@ def _write_config(root, wav_dir, tmp_path):
         "g_lr": 1.0e-4, "g_beta1": 0.9, "g_beta2": 0.999,
         "n_save_states_iter": 100, "n_save_backup_iter": 1000, "epochs": 1,
     }
+    if adv:
+        cfg.update(g_beta1=0.0, g_beta2=0.99, d_lr=1.0e-4, d_beta1=0.0,
+                   d_beta2=0.99, gan_loss_weight=3.0, feat_loss_weight=1.0)
     path = tmp_path / "config.yaml"
     path.write_text("".join(f"{k}: {json.dumps(v)}\n"
                             for k, v in cfg.items()))
@@ -371,7 +386,50 @@ def test_train_fastpitch_cli_one_epoch_with_validation_and_restore(
     fresh.close()
 
 
-def test_train_cli_refuses_the_adversarial_recipe():
+def test_train_fastpitch_adv_cli_one_epoch_with_validation_and_restore(
+        corpus, tmp_path):
+    """`--adv`: the critic trains beside the model for one epoch, and a
+    fresh state restores the critic (`model_d`), its optimizer (`optim_d`)
+    and its iteration vectors (`spectral_d`) from the checkpoint."""
     from tts_arabic_torch.apps import train_fastpitch
-    with pytest.raises(NotImplementedError, match="later slice"):
-        train_fastpitch.main(["--adv", "--device", "cpu"])
+    from tts_arabic_torch.runtime.config import get_config
+    from tts_arabic_torch.train.trainer import Trainer
+    root, wav_dir = corpus
+    cfg = _write_config(root, wav_dir, tmp_path, adv=True)
+    trainer = train_fastpitch.main(["--config", str(cfg), "--device", "cpu",
+                                    "--log-every", "1", "--adv"])
+    state = trainer.state
+    assert state.step == 2 and state.critic is not None
+    rows = [json.loads(line) for line in
+            (tmp_path / "logs" / "metrics.jsonl").read_text().splitlines()]
+    train_rows = [r for r in rows if "train/loss" in r]
+    assert [r["step"] for r in train_rows] == [0, 1]
+    for k in ("train/loss", "train/loss_d", "train/score", "train/fmatch"):
+        assert all(np.isfinite(r[k]) for r in train_rows), k
+    val_rows = [r for r in rows if "val/loss" in r]
+    assert len(val_rows) == 1 and np.isfinite(val_rows[0]["val/loss"])
+    st = torch.load(tmp_path / "ckpt" / "states.ckpt", weights_only=True)
+    assert {"model", "optim", "model_d", "optim_d", "spectral_d"} <= set(st)
+    assert "batch_stats" not in st          # FastPitch has no BatchNorm
+
+    model = PortFastPitch(PortCfg())
+    fresh_state = port_steps.TrainState(model,
+                                        port_steps.make_optimizer(model))
+    port_steps.add_critic(fresh_state, get_config(cfg), 99, "cpu")
+    u_init = {k: v.clone() for k, v in fresh_state.spectral.items()}
+    fresh = Trainer(port_steps.make_fastpitch_train_step(device="cpu"),
+                    fresh_state, log_dir=tmp_path / "logs2",
+                    checkpoint_dir=tmp_path / "ckpt", device="cpu")
+    assert fresh.restore() == 2
+    for name, v in state.critic.state_dict().items():
+        assert torch.equal(v, fresh_state.critic.state_dict()[name]), name
+    for k, u in state.spectral.items():
+        assert torch.equal(u, fresh_state.spectral[k]), k
+        assert not torch.equal(u, u_init[k]), k
+    got = fresh_state.d_optimizer.state_dict()
+    want = state.d_optimizer.state_dict()
+    assert got["state"].keys() == want["state"].keys()
+    for i, s in want["state"].items():
+        assert torch.equal(s["exp_avg_sq"], got["state"][i]["exp_avg_sq"])
+    assert got["param_groups"][0]["betas"] == (0.0, 0.99)
+    fresh.close()

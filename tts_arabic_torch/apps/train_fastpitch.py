@@ -1,12 +1,17 @@
-"""FastPitch training CLI, MSE recipe (reference `scripts/train_fp.py`).
+"""FastPitch training CLI (reference `scripts/train_fp.py` and
+`scripts/train_fp_adv.py`).
 
     python -m tts_arabic_torch.apps.train_fastpitch --config configs/nawar_fp.yaml
+    python -m tts_arabic_torch.apps.train_fastpitch --config configs/nawar_fp_adv.yaml --adv
     python -m tts_arabic_torch.apps.train_fastpitch --device cpu --max-steps 2
 
 Runs on the CUDA card unless `--device cpu` is given, and raises when there
 is none. The full-width FastPitch (`FastPitchConfig()`) is trained from
 seeded random weights, or from `restore_model` when the config names one.
-Per-epoch validation runs on `test_labels` when the config gives them.
+`--adv` adds the critic (`PatchDiscriminator(32)`, its AdamW from the
+config's `d_lr`/`d_beta1`/`d_beta2`, the loss weights `gan_loss_weight`
+and `feat_loss_weight`). Per-epoch validation runs on `test_labels` when
+the config gives them.
 """
 from __future__ import annotations
 
@@ -17,7 +22,7 @@ from ..models.fastpitch import FastPitch, FastPitchConfig
 from ..models.layers import init_weights
 from ..runtime.config import get_config
 from ..runtime.device import resolve_device
-from ..train.steps import (TrainState, make_fastpitch_eval_step,
+from ..train.steps import (TrainState, add_critic, make_fastpitch_eval_step,
                            make_fastpitch_train_step, make_optimizer)
 from ..train.trainer import Trainer
 
@@ -33,17 +38,13 @@ def main(argv=None) -> Trainer:
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", default="configs/nawar_fp.yaml")
     parser.add_argument("--adv", action="store_true",
-                        help="adversarial training (not ported yet)")
+                        help="adversarial training (PatchDiscriminator)")
     parser.add_argument("--epochs", type=int, default=None)
     parser.add_argument("--max-steps", type=int, default=None,
                         help="stop after this many updates")
     parser.add_argument("--log-every", type=int, default=10)
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
-    if args.adv:
-        raise NotImplementedError(
-            "the adversarial FastPitch recipe (--adv) is not ported yet: it "
-            "is a later slice of the port (ROADMAP.md, queue 1)")
     device = resolve_device(args.device)
     config = get_config(args.config)
 
@@ -56,24 +57,28 @@ def main(argv=None) -> Trainer:
     dyn = DynBatchDataset(dataset, max_lengths=config.max_lengths,
                           batch_sizes=config.batch_sizes)
 
+    seed = config.get("random_seed", 0) or 0
     model_config = FastPitchConfig()
-    model = init_weights(FastPitch(model_config),
-                         config.get("random_seed", 0) or 0)
+    model = init_weights(FastPitch(model_config), seed)
     # corpus pitch statistics in the weights (reference model.py:213-214)
     model.pitch_mean.fill_(config.f0_mean)
     model.pitch_std.fill_(config.f0_std)
     model.to(device)
-    optimizer = make_optimizer(model, config.g_lr, config.g_beta1,
-                               config.g_beta2,
-                               config.get("weight_decay", 1e-6))
-    state = TrainState(model, optimizer)
+    wd = config.get("weight_decay", 1e-6)
+    state = TrainState(model, make_optimizer(
+        model, config.g_lr, config.g_beta1, config.g_beta2, wd))
+    if args.adv:
+        add_critic(state, config, seed + 1, device)
     trainer = Trainer(
-        make_fastpitch_train_step(device=device), state,
+        make_fastpitch_train_step(
+            device=device,
+            gan_loss_weight=config.get("gan_loss_weight", 3.0),
+            feat_loss_weight=config.get("feat_loss_weight", 1.0)), state,
         log_dir=config.log_dir, checkpoint_dir=config.checkpoint_dir,
         n_save_states_iter=config.n_save_states_iter,
         n_save_backup_iter=config.n_save_backup_iter,
-        seed=config.get("random_seed", 0) or 0,
-        net_config=model_config.to_reference_net_config(), device=device)
+        seed=seed, net_config=model_config.to_reference_net_config(),
+        device=device)
     if config.get("restore_model"):
         trainer.restore(config.get_path("restore_model"))
 

@@ -1,5 +1,6 @@
-"""Datasets and batching for FastPitch training (host-side numpy; the port's
-copy of the FastPitch half of the JAX package's `data/dataset.py`).
+"""Datasets and batching for FastPitch and Tacotron2 training (host-side
+numpy; the port's copy of the JAX package's `data/dataset.py`, the
+vocoder's segments aside).
 
 - label-file parsing via a regex with named groups arabic / phonemes /
   buckwalter and filename / filestem (reference `_process_line`,
@@ -12,8 +13,10 @@ copy of the FastPitch half of the JAX package's `data/dataset.py`).
   (data.py:248-250)
 - length-bucketed dynamic batching (`DynBatchDataset`, data.py:258-307)
 
-`collate_fastpitch` pads text to multiples of 16 and mel to multiples of
-64, as the JAX package does, so the two see the same batch shapes. Audio is
+`collate_fastpitch` and `collate_tacotron` pad text to multiples of 16
+and mel to multiples of 64, as the JAX package does, so the two see the
+same batch shapes. `WeightedSampler` draws the balanced-sampling order
+(reference train.py:150-156). Audio is
 read at the mel frontend's 22050 Hz (`MelConfig`), resampled where a wav
 has another rate.
 """
@@ -117,8 +120,26 @@ class ArabDataset:
             entries.append((token_ids, fpath, phonemes))
         return entries
 
+    def _load_logmel(self, fpath):
+        """-> (log-mel [80, T] with the internal silence cut, the kept
+        frames' mask, the wave at the mel's rate)."""
+        wave, _ = load_wav(fpath, target_sr=self.mel_cfg.sample_rate)
+        mel_log = log_mel_numpy(wave, self.mel_cfg)
+        keep = silence_keep_mask(mel_log.mean(0))
+        return mel_log[:, keep], keep, wave
+
     def __len__(self):
         return len(self.data)
+
+    def __getitem__(self, idx):
+        """(token ids [n] int32, log-mel [80, T])."""
+        if self.cache is not None and idx in self.cache:
+            return self.cache[idx]
+        token_ids, fpath, _ = self.data[idx]
+        item = (token_ids, self._load_logmel(fpath)[0])
+        if self.cache is not None:
+            self.cache[idx] = item
+        return item
 
 
 class ArabDatasetFastPitch(ArabDataset):
@@ -157,18 +178,15 @@ class ArabDatasetFastPitch(ArabDataset):
 
     def _compute_item(self, idx):
         token_ids, fpath, _ = self.data[idx]
-        sr = self.mel_cfg.sample_rate
-        wave, _ = load_wav(fpath, target_sr=sr)
-        mel_log = log_mel_numpy(wave, self.mel_cfg)
-        keep = silence_keep_mask(mel_log.mean(0))
-        mel_log = mel_log[:, keep]
+        mel_log, keep, wave = self._load_logmel(fpath)
 
         if self.f0_dict is not None:
             f0 = np.asarray(self.f0_dict[os.path.basename(str(fpath))],
                             np.float32)
         else:
             from .f0 import estimate_f0
-            f0 = estimate_f0(wave, sr, hop_length=self.mel_cfg.hop_length)
+            f0 = estimate_f0(wave, self.mel_cfg.sample_rate,
+                             hop_length=self.mel_cfg.hop_length)
         f0 = f0[: len(keep)][keep[: len(f0)]]
         pitch = normalize_pitch(f0.copy(), self.f0_mean,
                                 self.f0_std)[None, :]  # [1, T]
@@ -273,3 +291,61 @@ def collate_fastpitch(batch: List[dict]) -> dict:
     return {"tokens": tokens, "token_lens": token_lens, "mel_tgt": mel,
             "mel_lens": mel_lens, "pitch_dense": pitch,
             "energy_dense": energy, "attn_prior": prior}
+
+
+def collate_tacotron(batch: List[tuple]) -> dict:
+    """Pad (token_ids, log_mel) pairs; the gate target is 1 from each
+    sample's last frame onward (reference `text_mel_collate_fn`,
+    data.py:13-47). Returns tokens [B, T_txt], token_lens, mel_tgt
+    [B, T_mel, 80] feature-last, gate_tgt [B, T_mel] and mel_lens."""
+    B = len(batch)
+    t_max = _ceil_to(max(len(t) for t, _ in batch), TEXT_PAD)
+    m_max = _ceil_to(max(m.shape[1] for _, m in batch), MEL_PAD)
+    n_mels = batch[0][1].shape[0]
+
+    tokens = np.zeros((B, t_max), np.int32)
+    token_lens = np.zeros((B,), np.int32)
+    mel = np.zeros((B, m_max, n_mels), np.float32)
+    gate = np.zeros((B, m_max), np.float32)
+    mel_lens = np.zeros((B,), np.int32)
+    for i, (t, m) in enumerate(batch):
+        tokens[i, : len(t)] = t
+        token_lens[i] = len(t)
+        mel[i, : m.shape[1]] = m.T
+        gate[i, m.shape[1] - 1:] = 1.0
+        mel_lens[i] = m.shape[1]
+    return {"tokens": tokens, "token_lens": token_lens, "mel_tgt": mel,
+            "gate_tgt": gate, "mel_lens": mel_lens}
+
+
+class WeightedSampler:
+    """Weighted sampling without replacement (reference `train.py:150-156`
+    balanced_sampling through torch's WeightedRandomSampler; the weights
+    file from `data/sampler/`): each epoch an order of every id, biased by
+    the weights, from numpy's generator seeded `seed` (the JAX package's
+    draws)."""
+
+    def __init__(self, weights, seed: int = 0):
+        self.weights = np.asarray(weights, np.float64)
+        self.weights = self.weights / self.weights.sum()
+        self.rng = np.random.default_rng(seed)
+
+    @classmethod
+    def from_file(cls, path, seed: int = 0):
+        """Weights from a `.npy`, a `.npz` (its first array) or a torch
+        file holding a tensor or a list."""
+        path = str(path)
+        if path.endswith(".npy") or path.endswith(".npz"):
+            w = np.load(path)
+            if hasattr(w, "files"):
+                w = w[w.files[0]]
+        else:
+            import torch
+            w = np.asarray(torch.load(path, map_location="cpu",
+                                      weights_only=True))
+        return cls(w, seed)
+
+    def sample(self, n=None):
+        n = n if n is not None else len(self.weights)
+        return self.rng.choice(len(self.weights), size=n, replace=False,
+                               p=self.weights)

@@ -218,6 +218,20 @@ def tacotron2_params_to_torch(variables: dict, config) -> dict:
     return sd
 
 
+def patch_discriminator_params_to_torch(variables: dict) -> tuple:
+    """flax PatchDiscriminator variables {'params', 'spectral'} -> (the
+    port's critic state dict, its iteration vectors): each `conv<i>`
+    kernel [k, k, in, out] (HWIO) -> weight [out, in, k, k] (OIHW), its
+    bias as is, and its `spectral` u [out, 1] as is."""
+    sd, spectral = {}, {}
+    for name, p in variables["params"].items():
+        sd[f"{name}.weight"] = np.ascontiguousarray(
+            _np(p["kernel"]).transpose(3, 2, 0, 1))
+        sd[f"{name}.bias"] = _np(p["bias"])
+        spectral[name] = _np(variables["spectral"][name]["u"])
+    return sd, spectral
+
+
 def diacritizer_params_to_torch(params: dict) -> dict:
     """The JAX diacritizers' numpy parameter dicts -> the reference `.pth`
     layout (the inverse of the JAX package's `_import_bilstm` and

@@ -28,6 +28,11 @@ the flag once per block, not once per step. The block takes its inputs
 from, and writes its results into, tensors it is given, so the pipeline
 can record one block as a CUDA graph and replay it.
 
+Training (`forward_train`) runs the teacher-forced steps as a Python loop
+of `_decode_step`s with the training dropouts, every mask drawn from one
+explicit generator, and BatchNorm on the batch's statistics as flax
+computes them (`_batch_norm_train`).
+
 The prenet dropout draws its masks for every step of a call up front
 (`prenet_masks`, from an explicit generator) and a step indexes them with
 its device-side `t`: a step's mask depends only on the call and on `t`,
@@ -37,6 +42,7 @@ lives inside a block.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import torch
@@ -44,13 +50,16 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
-from .layers import init_weights, sequence_mask
+from .layers import dropout, init_weights, sequence_mask
 
 _NEG_INF = -1e9
 
 # predicated decoder steps per block: the host reads the run flag once per
 # block, and a block runs at most DECODE_BLOCK - 1 steps past the exit
 DECODE_BLOCK = 16
+
+# flax's BatchNorm in training: running = 0.9 running + 0.1 batch
+_BN_MOMENTUM = 0.9
 
 # decoder state carried from step to step, besides the bookkeeping
 STATE_KEYS = ("attn_h", "attn_c", "dec_h", "dec_c", "attn_weights",
@@ -128,6 +137,27 @@ def _batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d) -> torch.Tensor:
                         bn.weight.to(dt), bn.bias.to(dt), False, 0.0, bn.eps)
 
 
+def _batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm1d,
+                      update: bool = True) -> torch.Tensor:
+    """BatchNorm in training, as flax computes it (channels-first x): the
+    batch's mean and biased variance over (B, T), pad positions included,
+    the variance as E[x^2] - E[x]^2 clipped at 0; with `update`, the
+    running statistics move to 0.9 running + 0.1 batch, the variance
+    biased (torch's `F.batch_norm` would move them by the unbiased
+    one)."""
+    mean = x.mean((0, 2))
+    var = torch.clamp((x * x).mean((0, 2)) - mean * mean, min=0.0)
+    if update:
+        with torch.no_grad():
+            bn.running_mean.copy_(_BN_MOMENTUM * bn.running_mean
+                                  + (1 - _BN_MOMENTUM) * mean)
+            bn.running_var.copy_(_BN_MOMENTUM * bn.running_var
+                                 + (1 - _BN_MOMENTUM) * var)
+            bn.num_batches_tracked.add_(1)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return (x - mean[:, None]) * mul[:, None] + bn.bias[:, None]
+
+
 def _conv_bn_stack(n: int, c_in: int, c_mid: int, c_out: int,
                    k: int) -> nn.ModuleList:
     dims = [c_in] + [c_mid] * (n - 1) + [c_out]
@@ -197,19 +227,24 @@ class _Postnet(nn.Module):
             c.n_mels, c.postnet_kernel_size)
 
     def forward(self, mel: torch.Tensor,
-                mel_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mel_lens: Optional[torch.Tensor] = None, *,
+                norm: Callable = _batch_norm,
+                drop: Optional[Callable] = None) -> torch.Tensor:
         """mel [B, T, n_mels] -> the residual [B, T, n_mels], in mel's
         dtype. With `mel_lens`, every conv input is re-masked to zero past
-        each length (pad-invariance, as in `Tacotron2.encode`)."""
+        each length (pad-invariance, as in `Tacotron2.encode`). `norm`
+        and `drop` (training: `Tacotron2.forward_train`) are the
+        BatchNorm and the dropout after each block."""
         m = (None if mel_lens is None
              else sequence_mask(mel_lens, mel.shape[1])[:, None, :])
         x = mel.transpose(1, 2)
         n = len(self.convolutions)
         for i, (conv, bn) in enumerate(self.convolutions):
-            x = _batch_norm(conv(x if m is None else torch.where(m, x, 0.0)),
-                            bn)
+            x = norm(conv(x if m is None else torch.where(m, x, 0.0)), bn)
             if i < n - 1:
                 x = torch.tanh(x)
+            if drop is not None:
+                x = drop(x)
         return x.transpose(1, 2)
 
 
@@ -234,6 +269,10 @@ def init_tacotron2(model: nn.Module, seed: int) -> nn.Module:
 
 class Tacotron2(nn.Module):
     """Reference `Tacotron2MS` in the reference state-dict layout."""
+
+    # the encoder's and the postnet's dropout in training (hard-coded, as
+    # in torchaudio and the JAX package)
+    CONV_DROPOUT = 0.5
 
     def __init__(self, config: Tacotron2Config = Tacotron2Config()):
         super().__init__()
@@ -264,21 +303,25 @@ class Tacotron2(nn.Module):
 
     def encode(self, tokens: torch.Tensor, token_lens: torch.Tensor,
                speaker_ids: Optional[torch.Tensor] = None, *,
-               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+               dtype: torch.dtype = torch.float32,
+               norm: Callable = _batch_norm,
+               drop: Optional[Callable] = None) -> torch.Tensor:
         """tokens [B, T] -> memory [B, T, memory_dim] in `dtype`.
 
         Every conv input is re-masked so pad positions read as zeros, the
         values the reference's exact-length run sees past the sequence
         end, which makes the encoding pad-invariant (the JAX package's
         rule; the reference itself leaks pad values between its stacked
-        convs when batching)."""
+        convs when batching). `norm` and `drop`: as in `_Postnet`."""
         c = self.config
         x = F.embedding(tokens, self.embedding.weight.to(dtype))
         m = sequence_mask(token_lens.to(tokens.device),
                           tokens.shape[1])[:, None, :]
         x = x.transpose(1, 2)
         for conv, bn in self.encoder.convolutions:
-            x = torch.relu(_batch_norm(conv(torch.where(m, x, 0.0)), bn))
+            x = torch.relu(norm(conv(torch.where(m, x, 0.0)), bn))
+            if drop is not None:
+                x = drop(x)
         x = self._bilstm(x.transpose(1, 2), token_lens.detach().cpu())
         if c.num_speakers > 1:
             if speaker_ids is None:
@@ -293,12 +336,15 @@ class Tacotron2(nn.Module):
     def encode_infer(self, tokens: torch.Tensor,
                      token_lens: Optional[torch.Tensor] = None,
                      speaker_ids: Optional[torch.Tensor] = None, *,
-                     dtype: torch.dtype = torch.float32) -> dict:
-        """Encoder pass + attention-key precomputation for the decode."""
+                     dtype: torch.dtype = torch.float32,
+                     **encode_kw) -> dict:
+        """Encoder pass + attention-key precomputation for the decode
+        (`encode_kw`: `encode`'s norm and drop)."""
         B, T_txt = tokens.shape
         if token_lens is None:
             token_lens = torch.full((B,), T_txt, dtype=torch.int32)
-        memory = self.encode(tokens, token_lens, speaker_ids, dtype=dtype)
+        memory = self.encode(tokens, token_lens, speaker_ids, dtype=dtype,
+                             **encode_kw)
         return {
             "memory": memory,
             "processed_memory":
@@ -376,14 +422,21 @@ class Tacotron2(nn.Module):
         return context, weights
 
     def _decode_step(self, state: dict, prenet_out: torch.Tensor, enc: dict,
-                     w: dict):
+                     w: dict, keep: Optional[tuple] = None):
         """One decoder step -> (new state, mel frame [B, n_mels],
-        gate logit [B], attention weights [B, T])."""
-        n_mels = self.config.n_mels
+        gate logit [B], attention weights [B, T]). `keep` (training): this
+        step's keep masks of the attention and the decoder LSTM's output,
+        which is dropped before it is used and carried."""
+        c = self.config
+        n_mels = c.n_mels
+        att_keep, dec_keep = keep or (None, None)
         ctx = state["attn_context"]
         attn_h, attn_c = torch.lstm_cell(
             torch.cat([prenet_out, ctx], dim=-1),
             (state["attn_h"], state["attn_c"]), *w["attention_rnn"])
+        if att_keep is not None:
+            attn_h = torch.where(att_keep, attn_h / (1 - c.attention_dropout),
+                                 0.0)
         attn_cat = torch.stack([state["attn_weights"],
                                 state["attn_weights_cum"]], dim=1)
         context, weights = self._attend(attn_h, enc["memory"],
@@ -392,6 +445,9 @@ class Tacotron2(nn.Module):
         dec_h, dec_c = torch.lstm_cell(
             torch.cat([attn_h, context], dim=-1),
             (state["dec_h"], state["dec_c"]), *w["decoder_rnn"])
+        if dec_keep is not None:
+            dec_h = torch.where(dec_keep, dec_h / (1 - c.decoder_dropout),
+                                0.0)
         out = F.linear(torch.cat([dec_h, context], dim=-1), w["out_w"],
                        w["out_b"])
         mel_frame, gate = out[:, :n_mels], out[:, n_mels]
@@ -403,30 +459,90 @@ class Tacotron2(nn.Module):
         }
         return new_state, mel_frame, gate, weights
 
-    # ---- teacher-forced forward (eval only, parity tests) -------------------
+    # ---- teacher-forced forward (training, validation, parity tests) -------
+
+    def _dropout(self, x: torch.Tensor, rate: float,
+                 gen: Optional[torch.Generator]) -> torch.Tensor:
+        """The encoder's and the postnet's dropout after each conv block
+        (training only: the identity without a generator)."""
+        return dropout(x, rate, gen)
+
+    def _lstm_keep_masks(self, n_steps: int, batch: int, device,
+                         gen: Optional[torch.Generator]):
+        """Keep masks of the attention and the decoder LSTM's output for
+        every teacher-forced step, drawn up front from `gen`:
+        [n_steps, batch, dim] bool each, or None at rate 0 or without a
+        generator."""
+        c = self.config
+        out = []
+        for rate, dim in ((c.attention_dropout, c.attention_rnn_dim),
+                          (c.decoder_dropout, c.decoder_rnn_dim)):
+            out.append(None if gen is None or rate == 0.0 else
+                       torch.rand((n_steps, batch, dim), generator=gen,
+                                  device=device) < 1.0 - rate)
+        return out
 
     def forward(self, tokens, token_lens, mel_tgt, mel_lens, speaker_ids=None,
                 *, generator: Optional[torch.Generator] = None):
         """Teacher-forced forward in eval (reference `Tacotron2MS.forward`
-        without its training dropouts). mel_tgt [B, T_mel, n_mels].
+        without its training dropouts; the prenet's masks from `generator`,
+        a fresh one seeded 0 when None). mel_tgt [B, T_mel, n_mels].
         -> (mel_out, mel_out_postnet, gates, alignments [B, T_mel, T_txt])."""
-        enc = self.encode_infer(tokens, token_lens, speaker_ids)
+        return self._teacher_forced(tokens, token_lens, mel_tgt, mel_lens,
+                                    speaker_ids, gen=generator, train=False)
+
+    def forward_train(self, tokens, token_lens, mel_tgt, mel_lens,
+                      speaker_ids=None, *,
+                      gen: Optional[torch.Generator] = None,
+                      update_stats: bool = True):
+        """Teacher-forced forward in training (the JAX `__call__` with
+        train=True), float32: dropout 0.5 after every encoder and postnet
+        conv block, the prenet's always-on dropout, the attention and
+        decoder LSTMs' dropout on every step, BatchNorm on the batch's
+        statistics. Every mask is drawn from `gen`, in that order, the
+        LSTMs' for all steps up front (None: the prenet's masks from a
+        generator seeded 0, no other dropout). With `update_stats` the
+        BatchNorm running statistics move (flax's rule,
+        `_batch_norm_train`). Returns what `forward` returns."""
+        return self._teacher_forced(tokens, token_lens, mel_tgt, mel_lens,
+                                    speaker_ids, gen=gen, train=True,
+                                    update_stats=update_stats)
+
+    def _teacher_forced(self, tokens, token_lens, mel_tgt, mel_lens,
+                        speaker_ids, *, gen, train: bool,
+                        update_stats: bool = False):
+        if train:
+            kw = dict(norm=functools.partial(_batch_norm_train,
+                                             update=update_stats),
+                      drop=functools.partial(self._dropout,
+                                             rate=self.CONV_DROPOUT, gen=gen))
+        else:
+            kw = {}
+        enc = self.encode_infer(tokens, token_lens, speaker_ids, **kw)
         B, T_mel, _ = mel_tgt.shape
+        dev = mel_tgt.device
         dec_in = torch.cat([mel_tgt.new_zeros(B, 1, self.config.n_mels),
                             mel_tgt[:, :-1]], dim=1)
         w = self.decoder_weights(mel_tgt.dtype)
-        masks = self.prenet_masks(T_mel, B, mel_tgt.device, generator)
+        # the prenet is per frame: every step's at once, [T_mel, B, dim]
+        masks = self.prenet_masks(T_mel, B, dev, gen)
+        pre = self._prenet(dec_in.transpose(0, 1), w,
+                           None if masks is None
+                           else masks[:T_mel].transpose(0, 1))
+        att_keep, dec_keep = (self._lstm_keep_masks(T_mel, B, dev, gen)
+                              if train else (None, None))
         state = self.init_decode_carry(enc["memory"])
         mels, gates, aligns = [], [], []
         for t in range(T_mel):
-            pre = self._prenet(dec_in[:, t], w,
-                               None if masks is None else masks[t])
-            state, mel, gate, weights = self._decode_step(state, pre, enc, w)
+            keep = tuple(None if k is None else k[t]
+                         for k in (att_keep, dec_keep))
+            state, mel, gate, weights = self._decode_step(state, pre[t], enc,
+                                                          w, keep)
             mels.append(mel)
             gates.append(gate)
             aligns.append(weights)
         mel_out = torch.stack(mels, dim=1)
-        post = self.postnet(mel_out, mel_lens)
+        post = self.postnet(mel_out, mel_lens, **kw)
         return (mel_out, mel_out + post, torch.stack(gates, dim=1),
                 torch.stack(aligns, dim=1))
 

@@ -1,10 +1,13 @@
-"""FastPitch training losses (the FastPitch half of the JAX package's
-`train/losses.py`): masked mel MSE, log-duration MSE, pitch MSE, energy
-MSE x0.1 and the attention CTC loss (reference `loss_function.py:45-123`),
-and the attention binarization KL (`attn_loss_function.py:64-71`)."""
+"""Training losses (the port's copy of the JAX package's `train/losses.py`):
+FastPitch's masked mel MSE, log-duration MSE, pitch MSE, energy MSE x0.1
+and the attention CTC loss (reference `loss_function.py:45-123`), the
+attention binarization KL (`attn_loss_function.py:64-71`), and
+Tacotron2's mel, postnet-mel and gate loss
+(`models/tacotron2/loss.py:5-33`)."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..models.layers import sequence_mask
 from ..ops.ctc import ctc_loss
@@ -87,4 +90,25 @@ def fastpitch_loss(out: dict, batch: dict):
     }
     if has_energy:
         meta["energy_loss"] = energy_loss
+    return loss, meta
+
+
+def tacotron2_loss(mel_out, mel_out_postnet, gate_out, mel_tgt, gate_tgt,
+                   mel_lens):
+    """MSE(mel) + MSE(postnet mel) + BCE(gate), each masked to the frames
+    inside each length. Shapes: mel [B, T, n_mel] feature-last, gate
+    [B, T]. Returns (loss, meta)."""
+    frame_mask = sequence_mask(mel_lens, mel_out.shape[1]).to(torch.float32)
+    m = frame_mask[..., None]
+    denom = torch.clamp(torch.sum(m) * mel_out.shape[-1], min=1.0)
+    mel_loss = torch.sum((mel_out - mel_tgt) ** 2 * m) / denom
+    post_loss = torch.sum((mel_out_postnet - mel_tgt) ** 2 * m) / denom
+    # optax's sigmoid_binary_cross_entropy
+    gate_bce = -(gate_tgt * F.logsigmoid(gate_out)
+                 + (1.0 - gate_tgt) * F.logsigmoid(-gate_out))
+    gate_loss = torch.sum(gate_bce * frame_mask) / torch.clamp(
+        torch.sum(frame_mask), min=1.0)
+    loss = mel_loss + post_loss + gate_loss
+    meta = {"loss": loss, "mel_loss": mel_loss, "post_mel_loss": post_loss,
+            "gate_loss": gate_loss}
     return loss, meta

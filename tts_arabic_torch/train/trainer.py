@@ -1,8 +1,13 @@
 """Training loop (the port's counterpart of the JAX package's
-`train/trainer.py`, reference `scripts/train_fp.py`): per-epoch shuffle of
-the dynamic batches, the train step, scalar logging (JSONL, and TensorBoard
-where it imports), checkpoints at the states/backup cadence of
-`configs/nawar_fp.yaml`, and per-epoch validation with `val/` scalars.
+`train/trainer.py`, reference `scripts/train_{fp,fp_adv,tc2,tc2_adv}.py`):
+per-epoch shuffle of the batches, the train step, scalar logging (JSONL,
+and TensorBoard where it imports), checkpoints at the states/backup
+cadence of the config, and per-epoch validation with `val/` scalars.
+
+A checkpoint holds the JAX trainer's keys: `model` and `optim`; with a
+critic also `model_d`, `optim_d` and `spectral_d` (its power-iteration
+vectors); for a model with BatchNorm also `batch_stats` (its running
+statistics, which `model` holds too, in the reference layout).
 
 Steps are counted in updates taken: the checkpoint after the n-th update
 says step n, and a restored run goes on from there. Log lines are labelled
@@ -13,10 +18,23 @@ from __future__ import annotations
 import time
 from typing import Callable, Optional
 
+import torch
+
 from ..runtime.checkpoint import CheckpointManager, load_states
 from ..runtime.device import resolve_device
 from ..runtime.logging import MetricLogger
 from .steps import TrainState
+
+
+_BATCH_NORMS = (torch.nn.BatchNorm1d, torch.nn.BatchNorm2d)
+
+
+def batch_stats(model: torch.nn.Module) -> dict:
+    """The running statistics of the model's BatchNorm layers, under their
+    state-dict names ({} when it has none)."""
+    return {f"{name}.{k}": v for name, mod in model.named_modules()
+            if isinstance(mod, _BATCH_NORMS)
+            for k, v in mod.named_buffers(recurse=False)}
 
 
 class Trainer:
@@ -40,18 +58,37 @@ class Trainer:
         if path is None:
             return 0
         st = load_states(path)
-        self.state.model.load_state_dict(st["model"])
+        state = self.state
+        state.model.load_state_dict(st["model"])
+        if st.get("batch_stats") is not None:
+            state.model.load_state_dict(st["batch_stats"], strict=False)
         if "optim" in st:
-            self.state.optimizer.load_state_dict(st["optim"])
-        self.state.step = int(st["step"])
-        return self.state.step
+            state.optimizer.load_state_dict(st["optim"])
+        if state.critic is not None and st.get("model_d") is not None:
+            state.critic.load_state_dict(st["model_d"])
+            if "optim_d" in st:
+                state.d_optimizer.load_state_dict(st["optim_d"])
+            if st.get("spectral_d") is not None:
+                dev = next(state.critic.parameters()).device
+                state.spectral = {k: v.to(dev)
+                                  for k, v in st["spectral_d"].items()}
+        state.step = int(st["step"])
+        return state.step
 
     def save(self, epoch: int, force: bool = False) -> list:
+        state = self.state
+        trees = {"model": state.model.state_dict(),
+                 "optim": state.optimizer.state_dict()}
+        if state.critic is not None:
+            trees.update(model_d=state.critic.state_dict(),
+                         optim_d=state.d_optimizer.state_dict(),
+                         spectral_d=dict(state.spectral))
+        stats = batch_stats(state.model)
+        if stats:
+            trees["batch_stats"] = stats
         return self.ckpt.maybe_save(
-            self.state.step, epoch=epoch, force=force,
-            config={"net_config": self.net_config},
-            model=self.state.model.state_dict(),
-            optim=self.state.optimizer.state_dict())
+            state.step, epoch=epoch, force=force,
+            config={"net_config": self.net_config}, **trees)
 
     def validate(self, val_dataset, collate_fn, eval_fn, step: int) -> dict:
         """Mean `val/` scalars over a validation set, each batch weighted by
