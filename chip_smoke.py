@@ -5,8 +5,9 @@ kernel variant against its plain PyTorch version on the card, drives
 serving surface (`stream()`, long-form, the vowelizers, the HTTP server
 and the inference CLI), `Tacotron2Wave` (tts(), its decode, stream(),
 the CLI and the server), the int8 path of both pipelines, the Vocos
-vocoder, the adversarial FastPitch recipe and Tacotron2 training (MSE and
-adversarial) at full width, and checks what comes out.
+vocoder, the adversarial FastPitch recipe, Tacotron2 training (MSE and
+adversarial) and HiFi-GAN vocoder training at full width, and checks what
+comes out.
 
     python3 chip_smoke.py
 
@@ -204,14 +205,39 @@ Phases, one line each (and a table for the kernel checks):
    shortest utterances cut to T2_SHORT_FRAMES frames, at phase 17's
    tolerances and BatchNorm statistics within 1e-5
 
+19. HiFi-GAN vocoder training, in the same corpus: the f32 ResBlock
+   kernels at the training shapes (segment 8192 = 32 frames, stage
+   lengths 256/2048/4096/8192 at C 256/128/64/32, k 3/7/11, at each batch
+   size of the run) against `resblock1_plain` (TF32 off) with their ms,
+   the plain version's ms and the bound, and `ResBlock1Function`'s
+   gradients against autograd of the plain version (GRAD_TOL of their
+   norm); then `apps.train_vocoder.main` with configs/hifigan_ft.yaml's
+   values (HiFi-GAN V1 warm-started from a seeded reference `.pth`, full
+   MPD and MSD, segment 8192, batch 16), one epoch (4 steps) and 1
+   validation batch, PyTorch's default precision, the launch counters set
+   to 0 just before and read just after. Checks: ResBlock launches = 54
+   wide + 6 narrow a step + 27 + 3 a validation batch, no MAS launch,
+   finite terms, the warm start loaded, every generator and discriminator
+   parameter moved, the checkpoint restores model, optim, model_d and
+   optim_d equal. Prints steps/s over steps 2-4, one steady step under
+   torch.profiler (the ResBlock kernels' share of the device time, the
+   idle share, the top ops), and one step at full width on two rows of
+   4096 samples in f32 on the card (TF32 off), in f32 on the CPU and in
+   float64 on the CPU: loss terms within STEP_LOSS_TOL of both, the
+   gradients (the discriminators' included) within STEP_GRAD_TOL of the
+   float64 step's, or within F32_SPREAD times the CPU f32 step's own
+   distance from it where that is larger
+
 Then nvidia-smi's line again, the smoke's seconds, the kernels' JSON
 record (for each ResBlock variant its ms, plain_ms and bound_ms summed
 over the serving path's bf16 launches, as timed in phase 3; for MAS the
 same sums over the training run's launches, as timed in phase 6;
 `tacotron2_launches` and `int8_launches`, each kernel's launches in phase
 12's and phase 14's counted tts(); for MAS also `adversarial_launches`
-and `adversarial_ms`, phase 17's launches and their summed kernel ms),
-and last the result line. Any
+and `adversarial_ms`, phase 17's launches and their summed kernel ms;
+`vocoder_train_launches`, phase 19's, and for the ResBlocks
+`vocoder_train_ms`, `vocoder_train_plain_ms` and `vocoder_train_bound_ms`
+summed over them as timed in phase 19), and last the result line. Any
 failure raises and the exit code is not 0; without a CUDA device the
 script exits 1 before printing any result.
 """
@@ -309,6 +335,12 @@ T2_INT8_STEPS = 1000
 # parity tests against JAX hold them
 STEP_LOSS_TOL = 1e-5
 STEP_GRAD_TOL = 1e-4
+# phase 19: at full width an f32 vocoder step's gradients lie 1.8e-4 to
+# 2.8e-4 of their norm from the float64 step's, on the CPU as on the card
+# (an H100 beside its host's CPU; on the card as much with plain ResBlocks
+# as with the kernels); the card's f32 step is held to the float64 one
+# within this factor of the CPU f32 step's own distance
+F32_SPREAD = 4.0
 T2_STEPS = 3            # phase 18's steps of each recipe
 T2_SHORT_FRAMES = 192   # phase 18's card-vs-CPU batch: mels cut to this
 T_START = 0.0
@@ -3023,6 +3055,362 @@ def phase_tacotron_training(root: pathlib.Path, smi: str) -> dict:
     return out
 
 
+# ---- HiFi-GAN vocoder training -----------------------------------------------
+
+def voc_kernel_checks(frames: int, batches: list, smi: str) -> dict:
+    """The f32 ResBlock kernels at vocoder training's shapes (each stage of
+    a `frames`-frame segment, k 3/7/11, at each batch size of the run):
+    kernel vs `resblock1_plain` (TF32 off), kernel ms, plain ms and bound;
+    then `ResBlock1Function`'s gradients against autograd of the plain
+    version at the largest batch (GRAD_TOL of their norm). Returns per
+    variant {batch: (ms, plain_ms, bound_ms, t_ops, t_bytes)} summed over
+    one generator forward's launches, and the largest errors."""
+    from tts_arabic_torch.ops import resblock as rb
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    set_tf32(False)
+    per = {}
+    max_abs = grad_rel = 0.0
+    B = max(batches)
+    log(f"[19 kernel checks] f32 (CUDA cores), TF32 off, training shapes: "
+        f"{frames} frames a segment, batch {' and '.join(map(str, batches))}"
+        f"; err = max|kernel - plain| / max|plain|; grad = max over x, w1, "
+        f"b1, w2, b2 of |g_function - g_plain| / |g_plain| at batch {B}")
+    log(f"    {'variant':17} {'C':>4} {'k':>3} {'B':>3} {'T':>6} {'err':>9} "
+        f"{'grad':>9} {'ms':>8} {'plain_ms':>9} {'bound_ms':>9}")
+    for C, t_per in STAGE_T.items():
+        T = t_per * frames
+        name = rb.variant(C)
+        for k in KERNEL_SIZES:
+            for b in sorted(batches, reverse=True):
+                args, err, rel = _rel_err(rb, name, C, k, T, torch.float32,
+                                          gen, batch=b)
+                max_abs = max(max_abs, err)
+                ms = cuda_ms(lambda: rb.resblock1(*args, k, DILATIONS))
+                plain_ms = cuda_ms(lambda: rb.resblock1_plain(
+                    *args, k, DILATIONS))
+                t_ops, t_bytes = bound(C, k, T, torch.float32, b)
+                g_msg = ""
+                if b == B:
+                    g = _function_grad_rel(rb, args, k)
+                    grad_rel = max(grad_rel, g)
+                    g_msg = f"{g:.2e}"
+                row = per.setdefault(name, {}).setdefault(b, [0.0] * 5)
+                for i, v in enumerate((ms, plain_ms, max(t_ops, t_bytes),
+                                       t_ops, t_bytes)):
+                    row[i] += v
+                log(f"    {name:17} {C:>4} {k:>3} {b:>3} {T:>6} {rel:>9.2e} "
+                    f"{g_msg:>9} {ms:>8.3f} {plain_ms:>9.3f} "
+                    f"{max(t_ops, t_bytes):>9.3f}")
+                del args
+    log(f"    one forward's ResBlocks, batch {B}: " + "; ".join(
+        f"{n} {v[B][0]:.2f} ms (plain {v[B][1]:.2f}, bound {v[B][2]:.2f})"
+        for n, v in per.items()) + f" | {smi}")
+    if not grad_rel <= GRAD_TOL:
+        raise AssertionError(f"ResBlock1Function gradients {grad_rel:.2e} "
+                             f"> {GRAD_TOL}")
+    set_tf32(True)
+    torch.backends.cuda.matmul.allow_tf32 = False   # PyTorch's defaults
+    torch.cuda.empty_cache()
+    return dict(per=per, max_abs_err=max_abs, grad_rel=grad_rel)
+
+
+def _function_grad_rel(rb, args, k) -> float:
+    """`ResBlock1Function` (kernel forward, plain recompute) against
+    autograd of `resblock1_plain`: the largest |g_fn - g_plain| / |g_plain|
+    over the five inputs, for sum(y * r)."""
+    r = torch.randn(args[0].shape, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(5))
+    grads = []
+    for fn in (rb.ResBlock1Function.apply, rb.resblock1_plain):
+        leaves = [a.detach().clone().requires_grad_() for a in args]
+        (fn(*leaves, k, DILATIONS) * r).sum().backward()
+        grads.append([t.grad for t in leaves])
+    return max(float((a - b).norm() / b.norm())
+               for a, b in zip(*grads))
+
+
+def write_reference_vocoder(path: pathlib.Path, seed: int):
+    """A seeded HiFi-GAN V1 written as the reference's `.pth` (conv weights
+    as weight_g / weight_v pairs under "generator"); returns the port's
+    generator with those weights."""
+    from tts_arabic_torch.models.layers import init_weights
+    from tts_arabic_torch.vocoder.hifigan import Generator
+    gen = init_weights(Generator(), seed)
+    sd = {}
+    for k, v in gen.state_dict().items():
+        if k.endswith(".weight"):
+            norm = torch.linalg.vector_norm(v.reshape(v.shape[0], -1),
+                                            dim=1)
+            sd[k[:-6] + "weight_g"] = norm.reshape(-1, 1, 1)
+            sd[k[:-6] + "weight_v"] = v
+        else:
+            sd[k] = v
+    torch.save({"generator": sd}, path)
+    return gen
+
+
+def _voc_restored(trainer, width: float) -> int:
+    """A fresh vocoder state restored from the run's checkpoint: model,
+    optim, model_d and optim_d equal the trained ones; returns the
+    restored step."""
+    from tts_arabic_torch.train import vocoder as voc
+    from tts_arabic_torch.train.trainer import Trainer
+    from tts_arabic_torch.vocoder.discriminators import (
+        MultiPeriodDiscriminator, MultiScaleDiscriminator)
+    from tts_arabic_torch.vocoder.hifigan import Generator
+    old = trainer.state
+    state = voc.init_vocoder_state(
+        Generator(old.model.config),
+        MultiPeriodDiscriminator(old.critic["mpd"].periods, width),
+        MultiScaleDiscriminator(old.critic["msd"].n_scales, width), seed=7,
+        device="cuda")
+    fresh = Trainer(None, state, log_dir=trainer.ckpt.directory / "restore",
+                    checkpoint_dir=trainer.ckpt.directory, device="cuda")
+    step = fresh.restore()
+    fresh.close()
+
+    def moments(opt):
+        return {f"{i}.{k}": v for i, s in opt.state_dict()["state"].items()
+                for k, v in s.items()}
+    pairs = [("model", old.model.state_dict(), state.model.state_dict()),
+             ("model_d", old.critic.state_dict(),
+              state.critic.state_dict()),
+             ("optim", moments(old.optimizer), moments(state.optimizer)),
+             ("optim_d", moments(old.d_optimizer),
+              moments(state.d_optimizer))]
+    differ = [f"{what}.{k}" for what, a, b in pairs for k in a
+              if k not in b or not torch.equal(a[k], b[k])]
+    if step != old.step or differ:
+        raise AssertionError(f"checkpoint restored step {step} (trained "
+                             f"{old.step}), entries that differ: {differ}")
+    return step
+
+
+def _voc_card_vs_cpu(wave: np.ndarray, periods, smi: str) -> None:
+    """One vocoder step from the same weights and batch, at full width: in
+    f32 on the card (TF32 off) and on the CPU, and in float64 on the CPU
+    (plain ResBlocks), the exact step's arithmetic. Loss terms: the card
+    within STEP_LOSS_TOL (relative) of both. Gradients (after the clip,
+    the generator's and the discriminators'): the CPU's f32 step is
+    itself about 2e-4 of their norm from the float64 step at this width
+    (mostly the last stage's bias gradients, sums over every sample of
+    terms that cancel), so two f32 steps cannot meet STEP_GRAD_TOL
+    against each other; the card is held to the float64 step instead,
+    within STEP_GRAD_TOL or F32_SPREAD times the CPU f32 step's own
+    distance from it, whichever is larger."""
+    from tts_arabic_torch.models.layers import init_weights
+    from tts_arabic_torch.ops import resblock as rb
+    from tts_arabic_torch.train import vocoder as voc
+    from tts_arabic_torch.vocoder import hifigan
+    from tts_arabic_torch.vocoder.discriminators import (
+        MultiPeriodDiscriminator, MultiScaleDiscriminator)
+    set_tf32(False)
+    base = init_weights(hifigan.Generator(), 0)
+    critic = torch.nn.ModuleDict({
+        "mpd": init_weights(MultiPeriodDiscriminator(periods), 1),
+        "msd": init_weights(MultiScaleDiscriminator(), 2)})
+    runs = {}
+    for label, dev, dtype in (("card", "cuda", torch.float32),
+                              ("cpu", "cpu", torch.float32),
+                              ("f64", "cpu", torch.float64)):
+        st = voc.init_vocoder_state(
+            hifigan.Generator(), MultiPeriodDiscriminator(periods),
+            MultiScaleDiscriminator(), device=dev)
+        st.model.load_state_dict(base.state_dict())
+        st.critic.load_state_dict(critic.state_dict())
+        st.model.to(dtype)
+        st.critic.to(dtype)
+        plain = (mock.patch.object(hifigan, "resblock1", rb.resblock1_plain)
+                 if dtype == torch.float64 else contextlib.nullcontext())
+        t0 = time.perf_counter()
+        with plain:
+            meta = voc.make_hifigan_train_step(device=dev)(
+                st, {"wave": torch.tensor(wave, dtype=dtype)}, 0)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        grads = {f"g.{n}": p.grad.detach().double().cpu()
+                 for n, p in st.model.named_parameters()}
+        grads.update({f"d.{n}": p.grad.detach().double().cpu()
+                      for n, p in st.critic.named_parameters()})
+        runs[label] = ({k: float(v) for k, v in meta.items()}, grads, secs)
+    set_tf32(True)
+    torch.backends.cuda.matmul.allow_tf32 = False   # PyTorch's defaults
+
+    def dist(a, b, prefix=""):
+        keys = [k for k in b if k.startswith(prefix)]
+        d = math.sqrt(sum(float((a[k] - b[k]).pow(2).sum()) for k in keys))
+        return d / math.sqrt(sum(float(b[k].pow(2).sum()) for k in keys))
+    (m_g, g_g, s_g), (m_c, g_c, s_c), (m_x, g_x, s_x) = (
+        runs["card"], runs["cpu"], runs["f64"])
+    term = max(max(abs(m_g[k] - v) / abs(v) for k, v in m.items())
+               for m in (m_c, m_x))
+    card, cpu = dist(g_g, g_x), dist(g_c, g_x)
+    gate = max(STEP_GRAD_TOL, F32_SPREAD * cpu)
+    norm = math.sqrt(sum(float(g.pow(2).sum()) for g in g_x.values()))
+    log(f"    [19 check] HiFi-GAN step, full width, batch {wave.shape}, "
+        f"TF32 off: loss {m_g['loss']!r} (card f32) vs {m_c['loss']!r} "
+        f"(CPU f32) vs {m_x['loss']!r} (CPU f64), max relative error of the "
+        f"{len(m_x)} terms {term:.2e} (<= {STEP_LOSS_TOL:.0e}) | gradients "
+        f"from the f64 step, of its norm {norm:.3e}: card {card:.3e} "
+        f"(generator {dist(g_g, g_x, 'g.'):.3e}, "
+        f"discriminators {dist(g_g, g_x, 'd.'):.3e}) <= max("
+        f"{STEP_GRAD_TOL:.0e}, {F32_SPREAD} x CPU f32's) = {gate:.3e}; CPU "
+        f"f32 {cpu:.3e} (generator {dist(g_c, g_x, 'g.'):.3e}, "
+        f"discriminators {dist(g_c, g_x, 'd.'):.3e}); card vs "
+        f"CPU f32 {dist(g_g, g_c):.3e} | card {s_g * 1e3:.1f} ms, CPU "
+        f"{s_c * 1e3:.1f} ms, f64 {s_x * 1e3:.1f} ms | {smi}")
+    if (m_g.keys() != m_x.keys() or g_g.keys() != g_x.keys()
+            or term > STEP_LOSS_TOL or not card <= gate):
+        raise AssertionError("[19 check] the card's vocoder step differs "
+                             "from the CPU's")
+
+
+def phase_vocoder_training(root: pathlib.Path, smi: str) -> dict:
+    """Phase 19: `train_vocoder` at full width (see the module
+    docstring)."""
+    from tts_arabic_torch.apps import train_vocoder
+    from tts_arabic_torch.models.layers import init_weights
+    from tts_arabic_torch.ops import mas as mas_ops
+    from tts_arabic_torch.ops import resblock as rb
+    from tts_arabic_torch.runtime.config import get_config
+    from tts_arabic_torch.train import vocoder as voc
+    from tts_arabic_torch.vocoder.discriminators import (
+        MultiPeriodDiscriminator, MultiScaleDiscriminator)
+    from tts_arabic_torch.vocoder.hifigan import generator_flops_per_frame
+    t0 = time.perf_counter()
+    warm = write_reference_vocoder(root / "hifigan_seeded.pth", 3)
+    config_path = corpus_config(
+        root, "hifigan_ft.yaml",
+        vocoder_state_path=str(root / "hifigan_seeded.pth"))
+    cfg = get_config(config_path)
+    seg, bs = cfg.segment_length, cfg.batch_size
+    frames = seg // HOP
+    n_train = len((root / "train.txt").read_text().splitlines())
+    n_val = len((root / "test.txt").read_text().splitlines())
+    train_b = [min(bs, n_train - i) for i in range(0, n_train, bs)]
+    val_b = [min(bs, n_val - i) for i in range(0, n_val, bs)]
+    checks = voc_kernel_checks(frames, sorted(set(train_b + val_b)), smi)
+
+    torch.backends.cudnn.allow_tf32 = True          # PyTorch's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    times, metas, batches, first = [], [], [], {}
+    timed = timed_steps(voc.make_hifigan_train_step, times, metas, batches)
+
+    def make(**kw):
+        run = timed(**kw)
+
+        def step(state, batch, seed):
+            if not first:   # the weights the first update starts from
+                first.update({k: v.detach().clone() for k, v in
+                              state.model.state_dict().items()})
+            return run(state, batch, seed)
+        return step
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(train_vocoder, "make_hifigan_train_step", make):
+        rb.reset_launches()
+        mas_ops.reset_launches()
+        trainer = train_vocoder.main([
+            "--config", str(config_path), "--epochs", "1", "--log-every",
+            "1", "--device", "cuda"])
+        torch.cuda.synchronize()
+        launches = {**rb.LAUNCHES, **mas_ops.LAUNCHES}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    keys = ("loss", "loss_d", "d_mpd_loss", "d_msd_loss", "mel_loss",
+            "gen_adv_loss", "feat_loss")
+    for i, (m, t) in enumerate(zip(metas, times)):
+        log(f"    step {i + 1}: "
+            + ", ".join(f"{k} {m[k]:.4f}" for k in keys)
+            + f", {t * 1e3:.1f} ms")
+    n_steps, n_vb = len(train_b), len(val_b)
+    if len(times) != n_steps or trainer.state.step != n_steps:
+        raise AssertionError(f"{len(times)} vocoder steps, state at "
+                             f"{trainer.state.step}, expected {n_steps}")
+    if [len(b["wave"]) for b in batches] != train_b:
+        raise AssertionError(f"batches of "
+                             f"{[len(b['wave']) for b in batches]}, "
+                             f"expected {train_b}")
+    _finite(metas, keys)
+    want = {"resblock1_wide": 54 * n_steps + 27 * n_vb,
+            "resblock1_narrow": 6 * n_steps + 3 * n_vb, "mas": 0}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want} (54 "
+                             "wide + 6 narrow a step, 27 + 3 a validation "
+                             "batch)")
+    differ = [k for k, v in warm.state_dict().items()
+              if not torch.allclose(first[k].cpu(), v, rtol=1e-6,
+                                    atol=1e-7)]
+    if differ:
+        raise AssertionError(f"the warm start did not load: {differ}")
+    state = trainer.state
+    still = [n for n, p in state.model.named_parameters()
+             if torch.equal(p.detach(), first[n])]
+    seed = trainer.seed
+    periods = tuple(cfg.get("mpd_periods", (2, 3, 5, 7, 11)))
+    width = cfg.get("disc_width", 1.0)
+    still += [f"mpd.{n}" for n in _unmoved(state.critic["mpd"], init_weights(
+        MultiPeriodDiscriminator(periods, width), seed + 1))]
+    still += [f"msd.{n}" for n in _unmoved(state.critic["msd"], init_weights(
+        MultiScaleDiscriminator(cfg.get("msd_scales", 3), width), seed + 2))]
+    if still:
+        raise AssertionError(f"parameters that did not move: {still}")
+    rows = [json.loads(ln) for ln in (pathlib.Path(
+        trainer.logger.log_dir) / "metrics.jsonl").read_text().splitlines()]
+    val_loss = [r["val/loss"] for r in rows if "val/loss" in r]
+    if len(val_loss) != 1 or not math.isfinite(val_loss[0]):
+        raise AssertionError(f"validation losses {val_loss}")
+    restored = _voc_restored(trainer, width)
+    rate, step_ms = _rate(times)
+    # a batch size the run has met before: no first-time cuDNN plans
+    repeat = [t for i, t in enumerate(times) if train_b[i] in train_b[:i]]
+    repeat_ms = sum(repeat) / len(repeat) * 1e3 if repeat else math.nan
+    n_fwd = {b: 2 * train_b.count(b) + val_b.count(b)
+             for b in set(train_b + val_b)}
+    summed = {name: [sum(n_fwd[b] * v[b][i] for b in n_fwd)
+                     for i in range(5)] for name, v in checks["per"].items()}
+    gen_gflop = generator_flops_per_frame(state.model.config) * frames / 1e9
+    log(f"[19 vocoder training] train_vocoder.main, HiFi-GAN V1 warm-started"
+        f" from a seeded reference .pth + MPD {periods} + MSD "
+        f"{state.critic['msd'].n_scales} scales at full width, hifigan_ft."
+        f"yaml recipe (segment {seg}, mel x{cfg.mel_loss_weight}, betas "
+        f"({cfg.g_beta1}, {cfg.g_beta2}), lr decay {cfg.lr_decay}), f32, "
+        f"{tf32_state()}: {n_steps} steps of batch {train_b} + {n_vb} "
+        f"validation batch(es) {val_b}, val loss {val_loss[0]:.4f} | steps "
+        f"2-{n_steps}: {rate:.2f} steps/s, {step_ms:.1f} ms a step "
+        f"({len(repeat)} at a batch size met before: {repeat_ms:.1f} ms a "
+        f"step) | launches {launches} | ResBlock kernels over the run's "
+        f"launches (phase 19 times): " + "; ".join(
+            f"{n} {v[0]:.2f} ms (bound {v[2]:.2f})" for n, v in summed.items())
+        + f" | generator forward {gen_gflop * bs:.1f} GFLOP at batch {bs} | "
+        f"every generator and discriminator parameter moved | checkpoint "
+        f"step {restored} restores model, optim, model_d, optim_d equal | "
+        f"peak memory {peak_gb:.2f} GB | {smi}")
+
+    # one more step at the first batch, under the profiler
+    step = voc.make_hifigan_train_step(device="cuda")
+    batch = batches[0]
+    step(state, batch, 0)
+    got = profiled(lambda: step(state, batch, 0))
+
+    def shares(by_name, busy):
+        k_ms = sum(v for n, v in by_name.items() if "resblock1" in n)
+        return (f" | ResBlock kernels {k_ms:.2f} ms = "
+                f"{100 * k_ms / sum(by_name.values()):.1f}% of the device "
+                f"time")
+    prof = _profile_line(f"[19 profile] one steady step at batch "
+                         f"{len(batch['wave'])}, segment {seg}", got, smi,
+                         shares)
+    del trainer, state, step
+    torch.cuda.empty_cache()
+
+    _voc_card_vs_cpu(np.asarray(batches[0]["wave"])[:2, :4096], periods,
+                     smi)
+    took = time.perf_counter() - t0
+    log(f"[19] the phase: {took:.1f} s")
+    return dict(launches=launches, summed=summed, rate=rate, step_ms=step_ms,
+                repeat_ms=repeat_ms, profile=prof, checks=checks)
+
+
 def main() -> int:
     global T_START
     T_START = time.perf_counter()
@@ -3081,6 +3469,7 @@ def main() -> int:
         phase_tacotron_training(pathlib.Path(tmp), smi)
         log(f"[17-18] the two phases and their corpus: "
             f"{time.perf_counter() - t0:.1f} s")
+        voc = phase_vocoder_training(pathlib.Path(tmp), smi)
     replaces = {
         "resblock1_wide": "tts_arabic_tpu/ops/hifigan_pallas.py:153",
         "resblock1_narrow": "tts_arabic_tpu/ops/hifigan_pallas.py:547",
@@ -3097,7 +3486,12 @@ def main() -> int:
                          else "bytes"),
             "library_ms": None,
             "tacotron2_launches": t2_launches[kname],
-            "int8_launches": int8_launches[kname]})
+            "int8_launches": int8_launches[kname],
+            # phase 19: vocoder training's f32 launches, and their kernel,
+            # plain and bound ms summed as timed at the run's shapes
+            "vocoder_train_launches": voc["launches"][kname],
+            **{f"vocoder_train_{k}": v for k, v in zip(
+                ("ms", "plain_ms", "bound_ms"), voc["summed"][kname])}})
     # one MAS launch per training step and validation batch, each timed at
     # its own batch's shape in phase 6
     kernels.append({
@@ -3110,7 +3504,7 @@ def main() -> int:
            for k in ("ms", "plain_ms", "bound_ms")},
         "bound_by": "bytes", "library_ms": None, "tacotron2_launches": 0,
         "int8_launches": 0, "adversarial_launches": adv["launches"],
-        "adversarial_ms": adv["mas_ms"]})
+        "adversarial_ms": adv["mas_ms"], "vocoder_train_launches": 0})
     log(smi)
     log(f"[smoke] every phase passed in {time.perf_counter() - T_START:.1f} "
         "s")

@@ -828,3 +828,106 @@ def test_tacotron2_train_forward_on_the_card_matches_the_cpu(cuda):
                                        msg=k)
     assert float((g_gpu - g_cpu).abs().max()) <= 1e-4 * float(
         g_cpu.abs().max())
+
+
+# ---- vocoder training: gradients through the ResBlock1 kernel ----------------
+
+def _training_generator(cuda, seed=1):
+    """HiFi-GAN V1's kernels and dilations on 256 initial channels (stages
+    128/64 wide, 32/16 narrow: widths the f32 kernels are built for)."""
+    from tts_arabic_torch.models.layers import init_weights
+    from tts_arabic_torch.vocoder.hifigan import Generator, HiFiGANConfig
+    return init_weights(Generator(HiFiGANConfig(
+        upsample_initial_channel=256)), seed).to(cuda)
+
+
+@pytest.mark.cuda
+def test_generator_gradient_reaches_every_parameter_on_the_card(cuda):
+    """A loss through the generator on the card gives every parameter a
+    non-zero gradient (the kernel's result stays in the graph) through 18
+    wide + 6 narrow kernel launches; all the gradients together within
+    1e-4 of their norm of the same loss's in float64 on the CPU (plain
+    ResBlocks). A single early tensor (conv_pre) is not compared alone:
+    an f32 CPU run is itself 1.3e-4 of its norm from float64 there."""
+    from unittest import mock
+
+    from tts_arabic_torch.vocoder import hifigan
+    gen = _training_generator(cuda)
+    g = torch.Generator().manual_seed(0)
+    mel = torch.randn((2, 12, 80), generator=g)
+    r = torch.randn((2, 12 * 256), generator=g)
+    before = dict(rb.LAUNCHES)
+    ((gen(mel.to(cuda)) * r.to(cuda)).sum()).backward()
+    torch.cuda.synchronize()
+    assert rb.LAUNCHES["resblock1_wide"] - before["resblock1_wide"] == 18
+    assert rb.LAUNCHES["resblock1_narrow"] - before[
+        "resblock1_narrow"] == 6
+    exact = _training_generator("cpu").double()
+    with mock.patch.object(hifigan, "resblock1", rb.resblock1_plain):
+        ((exact(mel.double()) * r.double()).sum()).backward()
+    diff = norm = 0.0
+    for (name, p), q in zip(gen.named_parameters(), exact.parameters()):
+        assert p.grad is not None and float(p.grad.abs().max()) > 0, name
+        diff += float((p.grad.double().cpu() - q.grad).pow(2).sum())
+        norm += float(q.grad.pow(2).sum())
+    assert diff ** 0.5 <= 1e-4 * norm ** 0.5, (diff ** 0.5, norm ** 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 11])
+@pytest.mark.parametrize("C", [256, 128, 64, 32])
+def test_resblock1_function_gradients_on_the_card(cuda, C, k):
+    """`ResBlock1Function` on the card (the f32 kernel forward, the plain
+    recompute) against autograd through `resblock1_plain` on the card, TF32
+    off, at each stage width of the training generator: the output equal
+    to the kernel's, every gradient within 1e-5 of its norm."""
+    T = 2 * 256 * 8 // (C // 32) + 5
+    x, w1, b1, w2, b2 = _case(C, k, T, torch.float32)
+    r = torch.randn(x.shape, generator=torch.Generator().manual_seed(2)
+                    ).to(cuda)
+    outs = {}
+    for label, fn in (("function", rb.ResBlock1Function.apply),
+                      ("plain", rb.resblock1_plain)):
+        leaves = [t.clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
+        before = sum(rb.LAUNCHES.values())
+        y = fn(*leaves, k, DIL)
+        (y * r).sum().backward()
+        torch.cuda.synchronize()
+        outs[label] = (y.detach(), [t.grad for t in leaves],
+                       sum(rb.LAUNCHES.values()) - before)
+    (y_f, g_f, n_f), (y_p, g_p, n_p) = outs["function"], outs["plain"]
+    assert n_f > 0 and n_p == 0
+    with torch.no_grad():
+        assert torch.equal(y_f, rb.resblock1(x, w1, b1, w2, b2, k, DIL))
+    for name, a, b in zip(("x", "w1", "b1", "w2", "b2"), g_f, g_p):
+        err = float((a - b).abs().max())
+        assert err <= 1e-5 * float(b.norm()), (name, err)
+
+
+@pytest.mark.cuda
+def test_graded_and_no_grad_forwards_are_equal_and_follow_a_step(cuda):
+    """The generator's no-grad forward (kept stacks, side streams) and its
+    graded one (fresh stacks through the Function, one stream) give equal
+    waves; after an optimizer step both read the new weights, as a fresh
+    generator loaded with them does."""
+    gen = _training_generator(cuda)
+    mel = torch.randn((2, 16, 80), generator=torch.Generator().manual_seed(3)
+                      ).to(cuda)
+    opt = torch.optim.SGD(gen.parameters(), lr=1e-2)
+    with torch.no_grad():
+        first = gen(mel)
+    graded = gen(mel)
+    assert graded.grad_fn is not None
+    assert torch.equal(graded.detach(), first)
+    graded.square().mean().backward()
+    opt.step()
+    with torch.no_grad():
+        after = gen(mel)
+    again = gen(mel)
+    fresh = _training_generator(cuda, seed=2)
+    fresh.load_state_dict(gen.state_dict())
+    with torch.no_grad():
+        want = fresh(mel)
+    assert not torch.equal(after, first)
+    assert torch.equal(after, want)
+    assert torch.equal(again.detach(), want)

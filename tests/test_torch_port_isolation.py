@@ -47,12 +47,13 @@ def test_module_walk_reaches_every_sub_package():
         assert f"tts_arabic_torch.{sub}" in names, sub
     for mod in ("align.mas", "align.prior", "apps.html_report",
                 "apps.inference", "apps.server", "apps.train_fastpitch",
-                "apps.train_tacotron", "train.gan",
+                "apps.train_tacotron", "apps.train_vocoder", "train.gan",
                 "data.dataset", "data.f0", "diacritizers.models",
                 "eval.alignment", "infer.longform", "infer.tacotron_pipeline",
                 "models.tacotron2", "ops.ctc", "ops.mas",
                 "runtime.checkpoint", "runtime.config", "runtime.logging",
-                "train.losses", "train.steps", "train.trainer"):
+                "train.losses", "train.steps", "train.trainer",
+                "train.vocoder", "vocoder.discriminators"):
         assert f"tts_arabic_torch.{mod}" in names, mod
         importlib.import_module(f"tts_arabic_torch.{mod}")
 
@@ -89,7 +90,8 @@ def test_entry_points_raise_without_cuda(entry, monkeypatch):
 
 @pytest.mark.parametrize("cli,flags", [
     ("train_fastpitch", []), ("train_fastpitch", ["--adv"]),
-    ("train_tacotron", []), ("train_tacotron", ["--adv"])])
+    ("train_tacotron", []), ("train_tacotron", ["--adv"]),
+    ("train_vocoder", [])])
 def test_training_cli_raises_without_cuda(monkeypatch, cli, flags):
     """`--device` defaults to cuda; without a card the CLI raises before it
     reads its config or its corpus."""
@@ -102,13 +104,22 @@ def test_training_cli_raises_without_cuda(monkeypatch, cli, flags):
 
 @pytest.mark.parametrize("entry", ["train_step", "eval_step", "Trainer",
                                    "tacotron_train_step",
-                                   "tacotron_eval_step"])
+                                   "tacotron_eval_step", "vocoder_train_step",
+                                   "vocoder_eval_step", "vocoder_state"])
 def test_training_entry_points_raise_without_cuda(entry, monkeypatch,
                                                   tmp_path):
-    from tts_arabic_torch.train import steps
+    from tts_arabic_torch.train import steps, vocoder
     from tts_arabic_torch.train.trainer import Trainer
+    from tts_arabic_torch.vocoder import discriminators as disc
+    from tts_arabic_torch.vocoder.hifigan import Generator, HiFiGANConfig
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     make = {"train_step": steps.make_fastpitch_train_step,
+            "vocoder_train_step": vocoder.make_hifigan_train_step,
+            "vocoder_eval_step": vocoder.make_hifigan_eval_step,
+            "vocoder_state": lambda **kw: vocoder.init_vocoder_state(
+                Generator(HiFiGANConfig(upsample_initial_channel=32)),
+                disc.MultiPeriodDiscriminator((2,), 0.125),
+                disc.MultiScaleDiscriminator(1, 0.125), **kw),
             "eval_step": steps.make_fastpitch_eval_step,
             "tacotron_train_step": steps.make_tacotron_train_step,
             "tacotron_eval_step": steps.make_tacotron_eval_step,

@@ -1,7 +1,11 @@
-"""Audio/DSP layer: framing, STFT/ISTFT, wav and mu-law output."""
+"""Audio/DSP layer: framing, STFT/ISTFT, the device log-mel, wav and
+mu-law output."""
 from .io import mulaw_decode, mulaw_encode, peak_normalize, save_wav
-from .mel import frame_signal
+from .mel import (MelSpectrogram, frame_signal, log_mel_spectrogram,
+                  mel_spectrogram, stft_magnitude)
 from .stft import hann, istft, stft
 
-__all__ = ["frame_signal", "hann", "istft", "mulaw_decode", "mulaw_encode",
-           "peak_normalize", "save_wav", "stft"]
+__all__ = ["MelSpectrogram", "frame_signal", "hann", "istft",
+           "log_mel_spectrogram", "mel_spectrogram", "mulaw_decode",
+           "mulaw_encode", "peak_normalize", "save_wav", "stft",
+           "stft_magnitude"]

@@ -1,6 +1,8 @@
-"""Signal framing, the mel filterbanks (slaney, and HTK for Vocos) and the
-host-side log-mel frontend (the parts of the JAX package's `audio/mel.py`
-that the inference path, the training datasets and Vocos use).
+"""Signal framing, the mel filterbanks (slaney, and HTK for Vocos), the
+host-side log-mel frontend and the device log-mel (the JAX package's
+`audio/mel.py`): numpy for the datasets, torch for vocoder training, which
+takes the log-mel of the waveform batch and of the generator's output
+inside the step and differentiates through the second.
 
 Analysis parameters as the reference (`utils/audio.py:6-46`): 22050 Hz,
 n_fft = win_length = 1024, hop 256, 80 mel bands, fmin 0 / fmax 8000,
@@ -14,6 +16,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 # --- Slaney mel scale -------------------------------------------------------
 
@@ -112,3 +115,63 @@ def log_mel_numpy(x: np.ndarray, cfg: MelConfig = MelConfig()) -> np.ndarray:
     spec = np.fft.rfft(xp[idx] * window, n=cfg.n_fft, axis=-1)
     mag = np.sqrt(np.abs(spec) ** 2 + 1e-9).T  # [F, T]
     return np.log(np.clip(basis @ mag, 1e-5, None)).astype(np.float32)
+
+
+# --- torch device path (vocoder training) -----------------------------------
+
+_CONSTANTS: dict = {}
+
+
+def _constants(cfg: MelConfig, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Slaney basis [n_mels, n_fft//2 + 1] and the periodic Hann window
+    [win_length], made once per config and device."""
+    key = (cfg, torch.device(device))
+    if key not in _CONSTANTS:
+        basis = slaney_mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels,
+                                      cfg.f_min, cfg.f_max)
+        window = np.hanning(cfg.win_length + 1)[:-1].astype(np.float32)
+        _CONSTANTS[key] = (torch.from_numpy(basis).to(device),
+                           torch.from_numpy(window).to(device))
+    return _CONSTANTS[key]
+
+
+def stft_magnitude(x: torch.Tensor, cfg: MelConfig = MelConfig()
+                   ) -> torch.Tensor:
+    """Waveform [..., S] -> linear magnitude [..., n_fft//2 + 1, frames],
+    center=False after reflect-padding (n_fft - hop)/2 on each side, so S
+    samples give S/hop frames. |X|^2 is formed as re^2 + im^2, which has a
+    finite gradient where X = 0."""
+    _, window = _constants(cfg, x.device)
+    pad = cfg.pad_length
+    lead = x.shape[:-1]
+    xp = F.pad(x.reshape(-1, 1, x.shape[-1]), (pad, pad), mode="reflect")
+    frames = frame_signal(xp.reshape(*lead, -1), cfg.n_fft,
+                          cfg.hop_length) * window.to(x.dtype)
+    spec = torch.fft.rfft(frames, n=cfg.n_fft, dim=-1)
+    mag = torch.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-9)
+    return mag.transpose(-1, -2)
+
+
+def mel_spectrogram(x: torch.Tensor, cfg: MelConfig = MelConfig()
+                    ) -> torch.Tensor:
+    """Waveform [..., S] -> mel magnitude [..., n_mels, frames]."""
+    basis, _ = _constants(cfg, x.device)
+    return basis.to(x.dtype) @ stft_magnitude(x, cfg)
+
+
+def log_mel_spectrogram(x: torch.Tensor, cfg: MelConfig = MelConfig(),
+                        clip: float = 1e-5) -> torch.Tensor:
+    """Log-mel as the datasets consume it (`utils/data.py:150-151`),
+    differentiable: waveform [..., S] -> [..., n_mels, S/hop]."""
+    return torch.log(torch.clamp(mel_spectrogram(x, cfg), min=clip))
+
+
+class MelSpectrogram:
+    """Callable wrapper mirroring the reference `MelSpectrogram` module:
+    waveform [..., S] -> mel magnitude [..., n_mels, frames]."""
+
+    def __init__(self, **kwargs):
+        self.config = MelConfig(**kwargs)
+
+    def __call__(self, x) -> torch.Tensor:
+        return mel_spectrogram(torch.as_tensor(x), self.config)

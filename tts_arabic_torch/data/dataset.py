@@ -1,6 +1,5 @@
-"""Datasets and batching for FastPitch and Tacotron2 training (host-side
-numpy; the port's copy of the JAX package's `data/dataset.py`, the
-vocoder's segments aside).
+"""Datasets and batching for FastPitch, Tacotron2 and vocoder training
+(host-side numpy; the port's copy of the JAX package's `data/dataset.py`).
 
 - label-file parsing via a regex with named groups arabic / phonemes /
   buckwalter and filename / filestem (reference `_process_line`,
@@ -12,6 +11,8 @@ vocoder's segments aside).
   (data.py:50-57), L2-over-bins energy, beta-binomial prior
   (data.py:248-250)
 - length-bucketed dynamic batching (`DynBatchDataset`, data.py:258-307)
+- random fixed-length waveform crops for HiFi-GAN training
+  (`VocoderSegmentDataset`, `collate_vocoder`)
 
 `collate_fastpitch` and `collate_tacotron` pad text to multiples of 16
 and mel to multiples of 64, as the JAX package does, so the two see the
@@ -316,6 +317,71 @@ def collate_tacotron(batch: List[tuple]) -> dict:
         mel_lens[i] = m.shape[1]
     return {"tokens": tokens, "token_lens": token_lens, "mel_tgt": mel,
             "gate_tgt": gate, "mel_lens": mel_lens}
+
+
+class VocoderSegmentDataset:
+    """Batches of random fixed-length waveform crops for vocoder GAN
+    training (upstream HiFi-GAN semantics: one fresh random segment per
+    utterance visit; a clip shorter than the segment is zero-padded).
+    Yields whole batches, as `DynBatchDataset` does: each epoch's batches
+    come from a permutation drawn with the seed (`shuffle`), and every
+    visit draws its crops from the same numpy generator, so the same seed
+    and wavs give the JAX package's crops.
+
+    `segment_length` must be a hop multiple: the log-mel pads
+    (n_fft - hop)/2 per side, so S samples give exactly S/hop mel frames
+    and the generator's output aligns sample for sample with the crop."""
+
+    def __init__(self, txtpath, wavpath,
+                 label_pattern: str = DEFAULT_LABEL_PATTERN,
+                 segment_length: int = 8192, batch_size: int = 16,
+                 sr_target: int = 22050, seed: int = 0,
+                 cache: bool = False):
+        if segment_length % MelConfig().hop_length:
+            raise ValueError("segment_length must be a hop (256) multiple")
+        self.files = [e[1] for e in ArabDataset(
+            txtpath, wavpath, label_pattern).data]
+        if not self.files:
+            raise ValueError(f"no usable wav entries in {txtpath}")
+        self.segment_length = segment_length
+        self.batch_size = batch_size
+        self.sr_target = sr_target
+        self.rng = np.random.default_rng(seed)
+        self.cache = {} if cache else None
+        self.shuffle()
+
+    def shuffle(self):
+        order = self.rng.permutation(len(self.files))
+        self.batches = [order[i: i + self.batch_size]
+                        for i in range(0, len(order), self.batch_size)]
+
+    def _load(self, idx: int) -> np.ndarray:
+        if self.cache is not None and idx in self.cache:
+            return self.cache[idx]
+        wave, _ = load_wav(self.files[idx], target_sr=self.sr_target)
+        if self.cache is not None:
+            self.cache[idx] = wave
+        return wave
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __getitem__(self, b_idx: int) -> list:
+        out = []
+        S = self.segment_length
+        for idx in self.batches[b_idx]:
+            wave = self._load(int(idx))
+            if len(wave) >= S:
+                start = int(self.rng.integers(0, len(wave) - S + 1))
+                out.append(wave[start: start + S])
+            else:
+                out.append(np.pad(wave, (0, S - len(wave))))
+        return out
+
+
+def collate_vocoder(batch: List[np.ndarray]) -> dict:
+    """Equal-length waveform crops -> {"wave": [B, S]} float32."""
+    return {"wave": np.stack(batch).astype(np.float32)}
 
 
 class WeightedSampler:

@@ -232,6 +232,32 @@ def patch_discriminator_params_to_torch(variables: dict) -> tuple:
     return sd, spectral
 
 
+def mpd_params_to_torch(variables: dict) -> dict:
+    """flax MultiPeriodDiscriminator params -> the port's state dict: each
+    `period_<p>.conv_<i>` kernel [kh, kw, in, out] -> Conv2d weight
+    [out, in, kh, kw], its bias as is."""
+    params = variables["params"] if "params" in variables else variables
+    sd: dict = {}
+    for disc, convs in params.items():
+        for name, p in convs.items():
+            sd[f"{disc}.{name}.weight"] = np.ascontiguousarray(
+                _np(p["kernel"]).transpose(3, 2, 0, 1))
+            sd[f"{disc}.{name}.bias"] = _np(p["bias"])
+    return sd
+
+
+def msd_params_to_torch(variables: dict) -> dict:
+    """flax MultiScaleDiscriminator params -> the port's state dict: each
+    `scale_<i>.conv_<j>` kernel [k, in/groups, out] -> grouped Conv1d
+    weight [out, in/groups, k], its bias as is."""
+    params = variables["params"] if "params" in variables else variables
+    sd: dict = {}
+    for disc, convs in params.items():
+        for name, p in convs.items():
+            _conv1d_t(sd, f"{disc}.{name}", p)
+    return sd
+
+
 def diacritizer_params_to_torch(params: dict) -> dict:
     """The JAX diacritizers' numpy parameter dicts -> the reference `.pth`
     layout (the inverse of the JAX package's `_import_bilstm` and

@@ -13,6 +13,12 @@ the tensor cores (`mma.sync`, weights streamed through shared memory by
 tensor it launches the kernel or raises; nothing falls back. `LAUNCHES`
 counts kernel launches per variant, so a run can show that its path went
 through the kernel.
+
+While a gradient is recorded, `resblock1` runs through `ResBlock1Function`:
+the forward as without one (the kernel on the card), and a backward that
+recomputes the block with `resblock1_plain` and differentiates that, an
+activation checkpoint. The JAX package has no backward kernel either: its
+training differentiates the flax `ResBlock1` with XLA's autodiff.
 """
 from __future__ import annotations
 
@@ -73,8 +79,10 @@ def kernel_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
     The result is kept on `w` until `w` changes in place or is asked for
     in another dtype, so a caller that passes the same weights each call
-    (`vocoder.hifigan.ResBlock1`) converts them once."""
-    if torch.is_grad_enabled() and w.requires_grad:
+    (`vocoder.hifigan.ResBlock1`) converts them once. A `w` that records
+    gradients (a training step's fresh stack) is converted afresh and
+    nothing is kept on it."""
+    if w.requires_grad:
         return w.permute(0, 3, 2, 1).contiguous().to(dtype)
     key = (w._version, dtype)
     kept = getattr(w, "_kernel_layout", None)
@@ -114,10 +122,50 @@ def resblock1(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
               dilations: Sequence[int]) -> torch.Tensor:
     """ResBlock1 forward, x [B, T, C] -> [B, T, C] (same arguments as
     `resblock1_plain`). CUDA tensors run the kernel; CPU tensors the plain
-    version."""
+    version. While a gradient is recorded for any input, the call goes
+    through `ResBlock1Function`, so the result is never cut off from the
+    graph."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w1, b1, w2, b2)):
+        return ResBlock1Function.apply(x, w1, b1, w2, b2, kernel_size,
+                                       tuple(dilations))
+    return _forward(x, w1, b1, w2, b2, kernel_size, dilations)
+
+
+class ResBlock1Function(torch.autograd.Function):
+    """`resblock1` with a gradient. Forward: the kernel on a CUDA tensor,
+    the plain version on a CPU one, under no_grad; it keeps x and the four
+    stacked weights and no intermediate. Backward: the block recomputed
+    with `resblock1_plain` on detached leaves and differentiated (an
+    activation checkpoint), so the kernel's forward is what runs and the
+    recompute is plain."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, kernel_size, dilations):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        ctx.kernel_size, ctx.dilations = kernel_size, tuple(dilations)
+        return _forward(x, w1, b1, w2, b2, kernel_size, dilations)
+
+    @staticmethod
+    def backward(ctx, grad):
+        need = ctx.needs_input_grad[:5]
+        leaves = [t.detach().requires_grad_(n)
+                  for t, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            y = resblock1_plain(*leaves, ctx.kernel_size, ctx.dilations)
+        got = iter(torch.autograd.grad(
+            y, [t for t, n in zip(leaves, need) if n], grad))
+        return (*(next(got) if n else None for n in need), None, None)
+
+
+def _forward(x, w1, b1, w2, b2, kernel_size, dilations) -> torch.Tensor:
+    """The forward without a graph: the kernel on the card, the plain
+    version on the CPU."""
     _check(x, w1, b1, w2, b2, kernel_size, dilations)
     if x.device.type == "cpu":
-        return resblock1_plain(x, w1, b1, w2, b2, kernel_size, dilations)
+        with torch.no_grad():
+            return resblock1_plain(x, w1, b1, w2, b2, kernel_size,
+                                   dilations)
     if x.device.type != "cuda":
         raise ValueError(f"resblock1 runs on cuda or cpu, not {x.device}")
     from .build import library

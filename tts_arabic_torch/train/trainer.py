@@ -5,8 +5,9 @@ and TensorBoard where it imports), checkpoints at the states/backup
 cadence of the config, and per-epoch validation with `val/` scalars.
 
 A checkpoint holds the JAX trainer's keys: `model` and `optim`; with a
-critic also `model_d`, `optim_d` and `spectral_d` (its power-iteration
-vectors); for a model with BatchNorm also `batch_stats` (its running
+critic also `model_d` and `optim_d`, and `spectral_d` where it keeps
+power-iteration vectors (the mel critic; HiFi-GAN's discriminators keep
+none); for a model with BatchNorm also `batch_stats` (its running
 statistics, which `model` holds too, in the reference layout).
 
 Steps are counted in updates taken: the checkpoint after the n-th update
@@ -81,8 +82,9 @@ class Trainer:
                  "optim": state.optimizer.state_dict()}
         if state.critic is not None:
             trees.update(model_d=state.critic.state_dict(),
-                         optim_d=state.d_optimizer.state_dict(),
-                         spectral_d=dict(state.spectral))
+                         optim_d=state.d_optimizer.state_dict())
+        if state.spectral is not None:
+            trees["spectral_d"] = dict(state.spectral)
         stats = batch_stats(state.model)
         if stats:
             trees["batch_stats"] = stats
@@ -93,12 +95,15 @@ class Trainer:
     def validate(self, val_dataset, collate_fn, eval_fn, step: int) -> dict:
         """Mean `val/` scalars over a validation set, each batch weighted by
         its size (reference `validate()`, train.py:19-58). `eval_fn(state,
-        batch) -> meta`, see `make_fastpitch_eval_step`."""
+        batch) -> meta`, see `make_fastpitch_eval_step`, or -> (meta,
+        figures), as `make_hifigan_eval_step` returns it (figures None)."""
         sums, n = {}, 0
         for b_idx in range(len(val_dataset)):
             batch = collate_fn(val_dataset[b_idx])
             b = int(next(iter(batch.values())).shape[0])
             meta = eval_fn(self.state, batch)
+            if isinstance(meta, tuple):
+                meta = meta[0]
             for k, v in meta.items():
                 sums[k] = sums.get(k, 0.0) + float(v) * b
             n += b

@@ -12,7 +12,9 @@ CUDA tensor; conv_pre, the upsamples and conv_post stay `F.conv1d` /
 `F.conv_transpose1d`, as the JAX package leaves them to XLA. On the card
 the ResBlocks of one stage run side by side, each on a stream of its own
 (`_side_streams`): a short window fills a tenth of the SMs with one
-ResBlock's time tiles. Parameter
+ResBlock's time tiles. While a gradient is recorded (training), they run in
+turn on the caller's stream and each goes through `ResBlock1Function`
+(the kernel's forward, a plain recompute in the backward). Parameter
 names follow the reference state dict with weight norm folded (the
 reference removes it at load, `vocoder/__init__.py:19`). Weights are cast
 to the input's dtype at each call, so one f32 module serves bf16 too.
@@ -92,7 +94,8 @@ def conv_transpose_1d(x: torch.Tensor, weight: torch.Tensor,
 class ResBlock1(nn.Module):
     """Dilated residual block (reference `ResBlock1`, models.py:22-59):
     three [leaky -> dilated conv -> leaky -> conv -> add] passes, one
-    `resblock1` kernel call."""
+    `resblock1` kernel call (through `ResBlock1Function` while a gradient
+    is recorded)."""
 
     def __init__(self, channels: int, kernel_size: int,
                  dilations: Sequence[int]):
@@ -200,14 +203,22 @@ class Generator(nn.Module):
     @staticmethod
     def _fuse(blocks, x: torch.Tensor) -> torch.Tensor:
         """Multi-receptive-field fusion: the outputs of the blocks
-        (callables on x), summed in order and averaged. On the card block 0
-        runs on the caller's stream and block j > 0 on side stream j,
-        forked from it and joined back before the sum. The last block (k = 11 in the published
-        configs, the longest) is queued first, for when the host is behind.
-        Every allocation on a side stream happens after such a fork, so a
-        block the caller freed is reused there only after the caller's
-        last read of it; no `record_stream` is needed."""
-        if x.device.type != "cuda":
+        (callables on x), summed in order and averaged. On the card, while
+        no gradient is recorded, block 0 runs on the caller's stream and
+        block j > 0 on side stream j, forked from it and joined back before
+        the sum. The last block (k = 11 in the published configs, the
+        longest) is queued first, for when the host is behind. Every
+        allocation on a side stream happens after such a fork, so a block
+        the caller freed is reused there only after the caller's last read
+        of it; no `record_stream` is needed. That no longer holds once
+        autograd keeps saved tensors and runs backward nodes on the
+        forward's streams, so a recorded call runs the blocks in turn on
+        the caller's stream (a training batch fills the card with one
+        block's tiles anyway)."""
+        recording = torch.is_grad_enabled() and (x.requires_grad or any(
+            p.requires_grad for b in blocks if isinstance(b, nn.Module)
+            for p in b.parameters()))
+        if x.device.type != "cuda" or recording:
             ys = [block(x) for block in blocks]
         else:
             main = torch.cuda.current_stream(x.device)
@@ -225,6 +236,25 @@ class Generator(nn.Module):
         for y in ys[1:]:
             acc = acc + y
         return acc / len(blocks)
+
+
+def generator_flops_per_frame(config: HiFiGANConfig = HiFiGANConfig()) -> int:
+    """FLOPs of one generator forward per mel frame, 2 per multiply-add of
+    conv_pre, the upsamples, the MRF ResBlocks and conv_post (JAX
+    `generator_flops_per_frame`)."""
+    c = config
+    total = 7 * c.num_mels * c.upsample_initial_channel
+    t_mult = 1
+    ch_in = c.upsample_initial_channel
+    for i, (u, k) in enumerate(zip(c.upsample_rates, c.upsample_kernel_sizes)):
+        ch = c.upsample_initial_channel // (2 ** (i + 1))
+        t_mult *= u
+        total += t_mult * k * ch_in * ch // u
+        for rk, rd in zip(c.resblock_kernel_sizes, c.resblock_dilation_sizes):
+            total += t_mult * 2 * len(rd) * rk * ch * ch
+        ch_in = ch
+    total += t_mult * 7 * ch_in
+    return 2 * total
 
 
 def chunked_vocode(generator: Callable[[torch.Tensor], torch.Tensor],
