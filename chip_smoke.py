@@ -6,7 +6,8 @@ serving surface (`stream()`, long-form, the vowelizers, the HTTP server
 and the inference CLI), `Tacotron2Wave` (tts(), its decode, stream(),
 the CLI and the server), the int8 path of both pipelines, the Vocos
 vocoder, the adversarial FastPitch recipe, Tacotron2 training (MSE and
-adversarial) and HiFi-GAN vocoder training at full width, and checks what
+adversarial), HiFi-GAN vocoder training, the AOT serving bundles
+(`torch.export`) and the offline apps at full width, and checks what
 comes out.
 
     python3 chip_smoke.py
@@ -228,6 +229,31 @@ Phases, one line each (and a table for the kernel checks):
    float64 step's, or within F32_SPREAD times the CPU f32 step's own
    distance from it where that is larger
 
+20. AOT serving bundles and the offline apps: phase 4's FastPitch +
+   HiFi-GAN V1 (bf16, seeded) saved as a `states.ckpt` and exported with
+   `apps.export_serving.export_bundle` at batch 8 and the text and mel
+   buckets the 16 prompts take on the live path (the export's seconds, the
+   `.pt2` bytes), served by `ServingBundle` against the live
+   `tts(out_int16=True)` (within BUNDLE_LSB; 27 wide + 3 narrow launches
+   per wave-program call, the ResBlock op inside the exported program),
+   the bundle's and the live path's real-time factor (median of 3 by
+   `runtime.profiling.benchmark`) and the MFU of one bundle serving
+   (`eval.flops` over its profiled device busy time, against
+   `chip_peak_flops` bf16); then phase 12's Tacotron2 in bf16, decodes
+   capped at T2_BUNDLE_STEPS, exported with `export_bundle_tacotron` and
+   served by `Tacotron2ServingBundle` against the live path (within
+   BUNDLE_LSB, launches, time); the live path's two routes to the ResBlock
+   kernel (the launch called directly, the custom op) by their host cost
+   a call, phase 9's first-chunk share and phase 4's real-time factor in
+   turns; then the offline apps on a fresh copy of phase 6's corpus:
+   `preprocess` audio, text and f0 (against the corpus's true f0),
+   `evaluate` on the 3 shortest test utterances (copy-synthesis: MCD and
+   every aligned delta exactly 0; FastPitch and Tacotron2: finite),
+   `export_torch` of phase 7's `states.ckpt` (the same tensors; its `.pth`
+   serves the checkpoint's waves exactly), `smoke_test` of both models,
+   and `download --verify` with a stub fetcher (one OK, one corrupt FAIL);
+   each app's seconds and the phase's
+
 Then nvidia-smi's line again, the smoke's seconds, the kernels' JSON
 record (for each ResBlock variant its ms, plain_ms and bound_ms summed
 over the serving path's bf16 launches, as timed in phase 3; for MAS the
@@ -237,7 +263,9 @@ same sums over the training run's launches, as timed in phase 6;
 and `adversarial_ms`, phase 17's launches and their summed kernel ms;
 `vocoder_train_launches`, phase 19's, and for the ResBlocks
 `vocoder_train_ms`, `vocoder_train_plain_ms` and `vocoder_train_bound_ms`
-summed over them as timed in phase 19), and last the result line. Any
+summed over them as timed in phase 19; `bundle_launches` and
+`tacotron2_bundle_launches`, phase 20's launches while the FastPitch and
+the Tacotron2 bundle served the 16 prompts), and last the result line. Any
 failure raises and the exit code is not 0; without a CUDA device the
 script exits 1 before printing any result.
 """
@@ -3411,6 +3439,397 @@ def phase_vocoder_training(root: pathlib.Path, smi: str) -> dict:
                 repeat_ms=repeat_ms, profile=prof, checks=checks)
 
 
+# ---- phase 20: AOT serving bundles and the offline apps ---------------------
+
+BUNDLE_LSB = 8          # bundle vs live, int16 (JAX tests/test_apps.py:342)
+T2_BUNDLE_STEPS = 768   # the Tacotron2 bundle's decode cap (JAX's default)
+
+
+def _live_batches(prompts: list[str], tokenize) -> list[tuple]:
+    """tts()'s batches of the prompts: the global length sort, BATCH rows
+    each, and inside a batch the rows sorted by token count as the
+    pipelines sort them. -> [(prompt indices in row order, padded token
+    length)]."""
+    order = sorted(range(len(prompts)), key=lambda i: -len(prompts[i]))
+    out = []
+    for k in range(0, len(order), BATCH):
+        idxs = order[k: k + BATCH]
+        lens = np.asarray([tokenize(prompts[i]) for i in idxs])
+        rows = [idxs[j] for j in np.argsort(-lens)]
+        out.append((rows, -(-int(lens.max()) // 16) * 16))
+    return out
+
+
+def _pt2_bytes(out: pathlib.Path) -> int:
+    return sum(p.stat().st_size for p in out.glob("*.pt2"))
+
+
+def _lsb(got: list, ref: list) -> int:
+    """max |got - ref| over waves of equal lengths (int16 LSB)."""
+    worst = 0
+    for g, r in zip(got, ref):
+        if g.dtype != np.int16 or g.shape != r.shape:
+            raise AssertionError(f"bundle wave {g.dtype} {g.shape}, live "
+                                 f"{r.dtype} {r.shape}")
+        worst = max(worst, int(np.abs(g.astype(np.int32)
+                                      - r.astype(np.int32)).max()))
+    return worst
+
+
+def _serve(bundle, prompts: list[str], batches: list[tuple]) -> list:
+    """The bundle's tts() of each live batch, its rows in the live order;
+    the waves back in prompt order."""
+    waves = [None] * len(prompts)
+    for rows, _ in batches:
+        for i, w in zip(rows, bundle.tts([prompts[i] for i in rows],
+                                         denoise=0.005)):
+            waves[i] = w
+    return waves
+
+
+def phase_fastpitch_bundle(smi: str, tmp: pathlib.Path) -> dict:
+    """Phase 4's full-width bf16 FastPitch + HiFi-GAN V1 exported from a
+    `states.ckpt` at batch 8 and the text and mel buckets the 16 prompts
+    need, served by `ServingBundle` against the live `tts(out_int16=True)`
+    of the same weights."""
+    from tts_arabic_torch.apps import export_serving as es
+    from tts_arabic_torch.eval import flops
+    from tts_arabic_torch.ops import resblock as rb
+    from tts_arabic_torch.runtime.profiling import benchmark
+    prompts = load_prompts(N_PROMPTS)
+    pipe = make_pipe(torch.bfloat16)
+    batches = _live_batches(prompts, lambda t: len(pipe.model.tokenize(t)))
+    with generator_calls() as calls:
+        live = pipe.tts(prompts, batch_size=BATCH, denoise=0.005,
+                        out_int16=True)
+    text_buckets = sorted({tb for _, tb in batches})
+    mel_buckets = sorted({c[1] for c in calls})
+    ckpt = save_checkpoint(pipe, tmp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = es.export_bundle(tmp / "fastpitch_bundle", str(ckpt),
+                           batch_sizes=(BATCH,), text_buckets=text_buckets,
+                           mel_buckets=mel_buckets, device="cuda")
+    export_s = time.perf_counter() - t0
+    bundle = es.ServingBundle(out)
+    got = _serve(bundle, prompts, batches)         # loads the programs
+    rb.reset_launches()
+    got = _serve(bundle, prompts, batches)
+    launches = dict(rb.LAUNCHES)
+    want = {"resblock1_wide": 27 * len(batches),
+            "resblock1_narrow": 3 * len(batches)}
+    if launches != want:
+        raise AssertionError(f"bundle launches {launches}, expected {want}: "
+                             "27 wide + 3 narrow a wave-program call")
+    lsb = _lsb(got, live)
+    if lsb > BUNDLE_LSB:
+        raise AssertionError(f"FastPitch bundle {lsb} LSB from the live "
+                             f"path (> {BUNDLE_LSB})")
+    audio_s = sum(w.size for w in live) / pipe.sample_rate
+    t_bundle = benchmark(lambda: _serve(bundle, prompts, batches), iters=3)
+    t_live = benchmark(lambda: pipe.tts(prompts, batch_size=BATCH,
+                                        denoise=0.005, out_int16=True),
+                       iters=3)
+    cfg = pipe.model.config
+    tbx = max(text_buckets)
+    work = sum(BATCH * (flops.fastpitch_encode_flops(cfg, tb)
+                        + flops.fastpitch_decode_flops(cfg, tbx, mb)
+                        + flops.hifigan_flops(mb, pipe.vocoder_config))
+               for (_, tb), mb in zip(batches, [c[1] for c in calls]))
+    prof = profiled(lambda: _serve(bundle, prompts, batches))
+    peak = flops.chip_peak_flops(0, "bf16")
+    busy = prof[2] if prof else float("nan")
+    mfu = work / (busy / 1e3) / peak if prof and peak else float("nan")
+    log(f"[20 fastpitch bundle] batch {BATCH}, text buckets "
+        f"{text_buckets}, mel buckets {mel_buckets}: export "
+        f"{export_s:.1f} s, {len(list(out.glob('*.pt2')))} programs, "
+        f"{_pt2_bytes(out)} bytes | ServingBundle vs live tts(out_int16="
+        f"True): max {lsb} LSB (gate {BUNDLE_LSB}) | launches {launches} | "
+        f"real time: bundle {audio_s / t_bundle.median_s:.1f}x ({t_bundle}),"
+        f" live {audio_s / t_live.median_s:.1f}x ({t_live}) | one serving "
+        f"of the 16 prompts under torch.profiler: device busy {busy:.2f} ms, "
+        f"{work / 1e9:.1f} GFLOP (eval.flops) = MFU {100 * mfu:.2f}% of "
+        f"{peak / 1e12:.0f} TFLOP/s bf16 | {smi}")
+    return dict(launches=launches, lsb=lsb, export_s=export_s,
+                rtf=audio_s / t_bundle.median_s,
+                live_rtf=audio_s / t_live.median_s, mfu=mfu)
+
+
+def phase_tacotron2_bundle(smi: str, tmp: pathlib.Path) -> dict:
+    """Phase 12's full-width Tacotron2 + HiFi-GAN V1 in bf16, decodes capped
+    at T2_BUNDLE_STEPS, exported at batch 8 and the buckets the 16 prompts
+    need, served by `Tacotron2ServingBundle` against the live
+    `Tacotron2Wave(compute_dtype=bf16).tts(out_int16=True)`."""
+    from tts_arabic_torch.apps import export_serving as es
+    from tts_arabic_torch.ops import resblock as rb
+    from tts_arabic_torch.text import tokens_to_ids
+    prompts = load_prompts(N_PROMPTS)
+    pipe = t2_pipe(compute_dtype=torch.bfloat16)
+    m = pipe.model
+    m.decoder_max_step = T2_BUNDLE_STEPS
+    batches = _live_batches(prompts, lambda t: len(tokens_to_ids(
+        m._prepare_tokens([t], None, True)[0][0], m.phon_to_id)))
+    t0 = time.perf_counter()
+    with generator_calls() as calls:
+        live = pipe.tts(prompts, batch_size=BATCH, denoise=0.005,
+                        out_int16=True)
+    live_s = time.perf_counter() - t0
+    text_buckets = sorted({tb for _, tb in batches})
+    mel_buckets = sorted({c[1] for c in calls})
+    t0 = time.perf_counter()
+    out = es.export_bundle_tacotron(
+        tmp / "tacotron2_bundle", batch_sizes=(BATCH,),
+        text_buckets=text_buckets, mel_buckets=mel_buckets,
+        max_steps=T2_BUNDLE_STEPS, device="cuda")
+    export_s = time.perf_counter() - t0
+    bundle = es.Tacotron2ServingBundle(out)
+    _serve(bundle, prompts, batches)                # loads the programs
+    rb.reset_launches()
+    t0 = time.perf_counter()
+    got = _serve(bundle, prompts, batches)
+    torch.cuda.synchronize()
+    bundle_s = time.perf_counter() - t0
+    launches = dict(rb.LAUNCHES)
+    want = {"resblock1_wide": 27 * len(batches),
+            "resblock1_narrow": 3 * len(batches)}
+    if launches != want:
+        raise AssertionError(f"Tacotron2 bundle launches {launches}, "
+                             f"expected {want}")
+    lsb = _lsb(got, live)
+    if lsb > BUNDLE_LSB:
+        raise AssertionError(f"Tacotron2 bundle {lsb} LSB from the live "
+                             f"path (> {BUNDLE_LSB})")
+    audio_s = sum(w.size for w in live) / pipe.sample_rate
+    log(f"[20 tacotron2 bundle] bf16, {T2_BUNDLE_STEPS} steps, batch "
+        f"{BATCH}, text buckets {text_buckets}, mel buckets {mel_buckets}: "
+        f"export {export_s:.1f} s, {len(list(out.glob('*.pt2')))} programs, "
+        f"{_pt2_bytes(out)} bytes | Tacotron2ServingBundle vs live "
+        f"tts(out_int16=True): max {lsb} LSB (gate {BUNDLE_LSB}) | launches "
+        f"{launches} | {audio_s:.2f} s of audio: bundle {bundle_s:.2f} s "
+        f"({audio_s / bundle_s:.1f}x real time), live (its first call, "
+        f"eager decode) {live_s:.2f} s | {smi}")
+    return dict(launches=launches, lsb=lsb, export_s=export_s)
+
+
+def phase_op_route(smi: str) -> dict:
+    """The live path's two routes to the ResBlock kernel: `resblock1` (the
+    launch called directly) and the custom op `tts_arabic::resblock1` (the
+    dispatcher, then the same launch). Each route's host cost a call at a
+    streamed window's shapes, then phase 9's first-chunk pair and phase
+    4's tts() through each, in turns (direct, op, op, direct)."""
+    from tts_arabic_torch.ops import resblock as rb
+    from tts_arabic_torch.vocoder import hifigan
+
+    def op_route(x, w1, b1, w2, b2, k, dilations):
+        return torch.ops.tts_arabic.resblock1(
+            x, rb.kernel_weights(w1, x.dtype), b1,
+            rb.kernel_weights(w2, x.dtype), b2, k, list(dilations))
+
+    routes = {"direct": rb.resblock1, "op": op_route}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    host_us = {}
+    for name, fn in routes.items():
+        per = []
+        for C, T in ((256, 160 * 8), (32, 160 * 256)):
+            x, w1, b1, w2, b2 = _case(C, 11, T, torch.bfloat16, gen, batch=1)
+            fn(x, w1, b1, w2, b2, 11, DILATIONS)
+            torch.cuda.synchronize()
+            n = 200
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn(x, w1, b1, w2, b2, 11, DILATIONS)
+            per.append((time.perf_counter() - t0) / n * 1e6)
+            torch.cuda.synchronize()
+        host_us[name] = per
+    prompts = load_prompts(N_PROMPTS)
+    pipe = make_pipe(torch.bfloat16)
+    capture(pipe)
+    for n_joined in range(N_STREAM_PROMPTS, len(prompts) + 1):
+        text = " ".join(prompts[:n_joined])     # phase 9's long utterance
+        if pipe.model.ttmel(text).shape[1] > (
+                STREAM_MIN_CHUNKS - 1) * STREAM_CHUNK:
+            break
+    kw = dict(chunk_frames=STREAM_CHUNK, overlap=STREAM_OVERLAP,
+              denoise=0.005)
+    ratios = {"direct": [], "op": []}
+    rtfs = {"direct": [], "op": []}
+    list(pipe.stream(text, **kw))
+    pipe.tts(prompts, batch_size=BATCH, denoise=0.005)
+    for name in ("direct", "op", "op", "direct"):
+        with mock.patch.object(hifigan, "resblock1", routes[name]):
+            firsts, fulls = first_and_whole(pipe, text, kw)
+            ratios[name].append(min(firsts) / min(fulls))
+            t0 = time.perf_counter()
+            waves = pipe.tts(prompts, batch_size=BATCH, denoise=0.005)
+            rtfs[name].append(sum(w.size for w in waves) / pipe.sample_rate
+                              / (time.perf_counter() - t0))
+    log(f"[20 op route] host us a call (C 256, 1280 rows; C 32, 40960 "
+        f"rows; B = 1, bf16, k 11): direct {host_us['direct'][0]:.1f}, "
+        f"{host_us['direct'][1]:.1f}; op {host_us['op'][0]:.1f}, "
+        f"{host_us['op'][1]:.1f} | first chunk / whole tts_single (graphs "
+        f"on both sides, min of 3), in turns direct, op, op, direct: "
+        f"direct {', '.join(f'{r:.3f}' for r in ratios['direct'])}; op "
+        f"{', '.join(f'{r:.3f}' for r in ratios['op'])} | tts() of the 16 "
+        f"prompts, x real time: direct "
+        f"{', '.join(f'{r:.1f}' for r in rtfs['direct'])}; op "
+        f"{', '.join(f'{r:.1f}' for r in rtfs['op'])} | {smi}")
+    return dict(host_us=host_us, ratios=ratios, rtfs=rtfs)
+
+
+def _report(path: pathlib.Path) -> dict:
+    report = json.loads(path.read_text())
+    agg = report["aggregate"]
+    if not agg or not all(np.isfinite(v) for v in agg.values()):
+        raise AssertionError(f"{path.name}: non-finite metrics {agg}")
+    return report
+
+
+def phase_offline_apps(smi: str, tmp: pathlib.Path,
+                       phase7_ckpt: pathlib.Path) -> dict:
+    """The offline apps on the card (their host work on the host), on a
+    fresh copy of phase 6's corpus: preprocess audio/text/f0, evaluate
+    (copy-synthesis, FastPitch from phase 7's `states.ckpt`, a seeded
+    Tacotron2), export_torch of that checkpoint (its `.pth` served against
+    the checkpoint), smoke_test of both models and download --verify with
+    a stub fetcher. -> seconds per app."""
+    from tts_arabic_torch.apps import (download, evaluate, export_torch,
+                                       preprocess, smoke_test)
+    from tts_arabic_torch.infer import FastPitch2Wave
+    secs = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    config = write_corpus(tmp / "corpus")
+    root = config.parent
+    wavs = root / "wavs"
+    n_wavs = len(list(wavs.glob("*.wav")))
+    timed("preprocess audio", preprocess.main,
+          ["audio", "--in-dir", str(wavs), "--out-dir", str(tmp / "pre")])
+    done = sorted((tmp / "pre").glob("*.wav"))
+    if len(done) != n_wavs:
+        raise AssertionError(f"preprocess audio: {len(done)} of {n_wavs}")
+    from tts_arabic_torch.audio import load_wav
+    for p in done:
+        x, sr = load_wav(p)
+        if sr != SAMPLE_RATE or not np.isfinite(x).all() or len(x) < 768:
+            raise AssertionError(f"preprocess audio: {p.name}")
+    lines = arabic_lines(16)
+    (tmp / "orth.txt").write_text(
+        "".join(f"utt{i}|{t}\n" for i, t in enumerate(lines)),
+        encoding="utf-8")
+    timed("preprocess text", preprocess.main,
+          ["text", "--transcript", str(tmp / "orth.txt"), "--out-dir",
+           str(tmp / "text")])
+    n_lines = sum(len((tmp / "text" / f"{s}_phon.txt").read_text(
+        encoding="utf-8").splitlines()) for s in ("train", "test"))
+    if n_lines != len(lines):
+        raise AssertionError(f"preprocess text: {n_lines} of {len(lines)}")
+    test_wavs = tmp / "test_wavs"
+    test_wavs.mkdir()
+    names = [parse.split('"')[1] for parse in
+             (root / "test.txt").read_text().splitlines()]
+    for name in names:
+        (test_wavs / name).write_bytes((wavs / name).read_bytes())
+    mean, std = timed("preprocess f0", preprocess.extract_f0, test_wavs,
+                      tmp / "f0.npz")
+    truth = np.load(root / "pitch_dict.npz")
+    true_mean = np.mean(np.concatenate([truth[n] for n in names]))
+    if not abs(mean - true_mean) < 0.1 * true_mean:
+        raise AssertionError(f"f0 mean {mean:.1f} Hz vs the corpus's "
+                             f"{true_mean:.1f}")
+
+    # evaluate scores on the host (a Python DTW of pred x ref frames per
+    # metric), so it takes the 3 shortest test utterances
+    test_lines = (root / "test.txt").read_text().splitlines()
+    short = sorted(test_lines, key=lambda line: len(line.split('"')[3]))[:3]
+    (root / "short.txt").write_text("\n".join(short) + "\n")
+    labels = ["--labels", str(root / "short.txt"), "--wav-dir", str(wavs)]
+    timed("evaluate copy", evaluate.main,
+          labels + ["--copy-synthesis", "--out", str(tmp / "copy.json")])
+    copy = _report(tmp / "copy.json")
+    zeros = [v for r in copy["per_utterance"] for k, v in r.items()
+             if k == "mcd" or k.startswith(("mae_", "delta_u_"))]
+    if any(v != 0.0 for v in zeros):
+        raise AssertionError(f"copy-synthesis: nonzero {max(zeros)}")
+    # phase 4's seeded FastPitch (durations biased +2.0) as a checkpoint
+    biased = save_checkpoint(make_pipe(torch.bfloat16), tmp)
+    timed("evaluate fastpitch", evaluate.main,
+          labels + ["--checkpoint", str(biased), "--out",
+                    str(tmp / "fp.json")])
+    fp = _report(tmp / "fp.json")
+    timed("evaluate tacotron2", evaluate.main,
+          labels + ["--model", "tacotron2", "--out", str(tmp / "t2.json")])
+    t2 = _report(tmp / "t2.json")
+
+    pth = tmp / "fastpitch_phase7.pth"
+    timed("export_torch", export_torch.main,
+          ["--model", "fastpitch", "--checkpoint", str(phase7_ckpt), "--out",
+           str(pth)])
+    from tts_arabic_torch.runtime.checkpoint import load_states
+    trained = load_states(phase7_ckpt)["model"]
+    exported = torch.load(pth, weights_only=True)["model"]
+    if exported.keys() != trained.keys() or not all(
+            torch.equal(exported[k], v) for k, v in trained.items()):
+        raise AssertionError("export_torch changed phase 7's weights")
+    prompts = load_prompts(BATCH)
+    waves = [FastPitch2Wave(src, arabic_in=False,
+                            compute_dtype=torch.bfloat16).tts(
+                                prompts, batch_size=BATCH, out_int16=True)
+             for src in (phase7_ckpt, pth)]
+    if any(a.shape != b.shape or not np.array_equal(a, b)
+           for a, b in zip(*waves)):
+        raise AssertionError("the exported .pth serves other waves than "
+                             "its states.ckpt")
+    served = sum(w.size for w in waves[0]) / SAMPLE_RATE
+
+    for model, ckpt in (("fastpitch", biased), ("tacotron2", None)):
+        out = tmp / f"smoke_{model}"
+        argv = ["--model", model, "--out-dir", str(out)]
+        timed(f"smoke_test {model}", smoke_test.main,
+              argv + (["--checkpoint", str(ckpt)] if ckpt else []))
+        if not ((out / "sample.wav").stat().st_size > 44
+                and (out / "index.html").is_file()):
+            raise AssertionError(f"smoke_test {model}: no wav or page")
+
+    def fetcher(url, dest):             # a stub: nothing is fetched
+        dest.parent.mkdir(parents=True, exist_ok=True)
+        dest.write_bytes(pth.read_bytes())
+
+    said = []
+    art = tmp / "artifacts"
+    rc_ok = timed("download verify", download.run_verify, art,
+                  ["fastpitch_ar_mse.pth"], fetcher, said.append)
+    bad = art / download.FILES["tacotron2_ar_mse.pth"]["path"]
+    bad.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"model": {"nonsense.weight": torch.zeros(2)}}, bad)
+    rc_bad = download.run_verify(art, ["tacotron2_ar_mse.pth"], None,
+                                 said.append)
+    if (rc_ok, rc_bad) != (0, 1) or "OK" not in said[1] \
+            or "FAIL" not in said[3]:
+        raise AssertionError(f"download --verify: {rc_ok}, {rc_bad}: {said}")
+    plotted = (tmp / "smoke_fastpitch" / "mel.png").exists()
+    log(f"[20 apps] on a fresh copy of phase 6's corpus: preprocess audio "
+        f"({n_wavs} wavs), text ({len(lines)} lines), f0 ({len(names)} "
+        f"wavs: mean {mean:.1f} Hz against the corpus's {true_mean:.1f}, "
+        f"std {std:.1f}) | evaluate on the {len(short)} shortest test "
+        f"utterances: copy-synthesis MCD and every aligned delta 0, "
+        f"FastPitch (phase 4's seeded weights) MCD "
+        f"{fp['aggregate']['mcd']:.3f} dB, seeded Tacotron2 MCD "
+        f"{t2['aggregate']['mcd']:.3f} dB, every metric finite | "
+        f"export_torch of phase 7's states.ckpt: the same tensors, and the "
+        f".pth serves its {len(prompts)} waves ({served:.2f} s) exactly | "
+        f"smoke_test of both models (mel.png "
+        f"{'written' if plotted else 'not written: no matplotlib'}) | "
+        f"download --verify (stub fetcher): {said[1].split()[1]}, a corrupt "
+        f"artifact {said[3].split()[1]} | seconds: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()) + f" | {smi}")
+    return secs
+
+
 def main() -> int:
     global T_START
     T_START = time.perf_counter()
@@ -3437,6 +3856,10 @@ def main() -> int:
     phase_generator_check(smi, torch.bfloat16)
     build_dir = ROOT / "build"      # git-ignored, inside the checkout
     build_dir.mkdir(exist_ok=True)
+    # phase 20 exports phase 7's checkpoint; removed at the end (or at exit)
+    keep = tempfile.TemporaryDirectory(prefix="smoke_phase20_",
+                                       dir=build_dir)
+    phase7_ckpt = pathlib.Path(keep.name) / "phase7_states.ckpt"
     with tempfile.TemporaryDirectory(prefix="smoke_corpus_",
                                      dir=build_dir) as tmp:
         config_path = write_corpus(pathlib.Path(tmp))
@@ -3444,6 +3867,8 @@ def main() -> int:
         mas = phase_mas_checks(train, val)
         train_launches = phase_training(config_path, train, val, mas, smi)
         phase_step_check(train[0], smi)
+        (pathlib.Path(tmp) / "ckpt_nawar_fp" / "states.ckpt").rename(
+            phase7_ckpt)
     phase_stream_kernels()
     phase_stream(smi)
     phase_vowelizers(smi)
@@ -3470,6 +3895,20 @@ def main() -> int:
         log(f"[17-18] the two phases and their corpus: "
             f"{time.perf_counter() - t0:.1f} s")
         voc = phase_vocoder_training(pathlib.Path(tmp), smi)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="smoke_bundles_",
+                                     dir=build_dir) as tmp:
+        fp_bundle = phase_fastpitch_bundle(smi, pathlib.Path(tmp))
+        t2_bundle = phase_tacotron2_bundle(smi, pathlib.Path(tmp))
+    bundles_s = time.perf_counter() - t0
+    phase_op_route(smi)
+    t1 = time.perf_counter()
+    phase_offline_apps(smi, pathlib.Path(keep.name), phase7_ckpt)
+    keep.cleanup()
+    log(f"[20] the phase: {time.perf_counter() - t0:.1f} s (the two bundles "
+        f"{bundles_s:.1f} s, of it exports {fp_bundle['export_s']:.1f} + "
+        f"{t2_bundle['export_s']:.1f} s; the apps "
+        f"{time.perf_counter() - t1:.1f} s)")
     replaces = {
         "resblock1_wide": "tts_arabic_tpu/ops/hifigan_pallas.py:153",
         "resblock1_narrow": "tts_arabic_tpu/ops/hifigan_pallas.py:547",
@@ -3491,7 +3930,11 @@ def main() -> int:
             # plain and bound ms summed as timed at the run's shapes
             "vocoder_train_launches": voc["launches"][kname],
             **{f"vocoder_train_{k}": v for k, v in zip(
-                ("ms", "plain_ms", "bound_ms"), voc["summed"][kname])}})
+                ("ms", "plain_ms", "bound_ms"), voc["summed"][kname])},
+            # phase 20: launches inside the exported wave programs while a
+            # bundle served the 16 prompts (FastPitch, Tacotron2)
+            "bundle_launches": fp_bundle["launches"][kname],
+            "tacotron2_bundle_launches": t2_bundle["launches"][kname]})
     # one MAS launch per training step and validation batch, each timed at
     # its own batch's shape in phase 6
     kernels.append({
@@ -3504,7 +3947,8 @@ def main() -> int:
            for k in ("ms", "plain_ms", "bound_ms")},
         "bound_by": "bytes", "library_ms": None, "tacotron2_launches": 0,
         "int8_launches": 0, "adversarial_launches": adv["launches"],
-        "adversarial_ms": adv["mas_ms"], "vocoder_train_launches": 0})
+        "adversarial_ms": adv["mas_ms"], "vocoder_train_launches": 0,
+        "bundle_launches": 0, "tacotron2_bundle_launches": 0})
     log(smi)
     log(f"[smoke] every phase passed in {time.perf_counter() - T_START:.1f} "
         "s")

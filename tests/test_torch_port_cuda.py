@@ -931,3 +931,65 @@ def test_graded_and_no_grad_forwards_are_equal_and_follow_a_step(cuda):
     assert not torch.equal(after, first)
     assert torch.equal(after, want)
     assert torch.equal(again.detach(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [256, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_resblock_op_launches_the_kernel(cuda, C, dtype):
+    """`tts_arabic::resblock1` on CUDA tensors: opcheck, the same launches
+    and the same bits as `resblock1`, weights in the kernel layout."""
+    x, w1, b1, w2, b2 = _case(C, 7, 300, dtype, seed=3)
+    args = (x, rb.kernel_weights(w1, dtype), b1, rb.kernel_weights(w2, dtype),
+            b2, 7, list(DIL))
+    torch.library.opcheck(torch.ops.tts_arabic.resblock1.default, args)
+    rb.reset_launches()
+    got = torch.ops.tts_arabic.resblock1(*args)
+    launches = dict(rb.LAUNCHES)
+    want = rb.resblock1(x, w1, b1, w2, b2, 7, DIL)
+    torch.cuda.synchronize()
+    assert launches == {rb.variant(C): 3 if C > 32 else 1,
+                        ("resblock1_narrow" if C > 32 else
+                         "resblock1_wide"): 0}
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_bundle_exported_on_the_card_equals_the_live_path(cuda, tmp_path):
+    """A narrow FastPitch bundle exported for the card: its wave program
+    launches the kernels (27 wide + 3 narrow a call: the vocoder's stages
+    of 256-32 channels) and its int16 waves equal the live path's."""
+    import numpy as np
+
+    from tts_arabic_torch.apps import export_serving as es
+    from tts_arabic_torch.infer import FastPitch2Wave
+    from tts_arabic_torch.infer.pipeline import _pick_mel_bucket
+    from tts_arabic_torch.models.fastpitch import FastPitchConfig
+    from tts_arabic_torch.runtime.checkpoint import save_states
+    pipe = FastPitch2Wave(seed=0, arabic_in=False, device="cuda",
+                          compute_dtype=torch.bfloat16,
+                          config=FastPitchConfig(d_model=64, enc_n_layers=1,
+                                                 dec_n_layers=1))
+    with torch.no_grad():
+        pipe.model.model.duration_predictor.fc.bias.add_(2.0)
+    ckpt = tmp_path / "states.ckpt"
+    save_states(ckpt, config={
+        "net_config": pipe.model.config.to_reference_net_config()},
+        model=pipe.model.model.state_dict())
+    texts = ["kitAbun", "salAm wa kitAb"]
+    want = pipe.tts(texts, batch_size=2, denoise=0.005, out_int16=True)
+    frames = pipe.model.ttmel(texts, batch_size=2)
+    bucket = _pick_mel_bucket(max(m.shape[1] for m in frames))
+    out = es.export_bundle(tmp_path / "bundle", str(ckpt), batch_sizes=(2,),
+                           text_buckets=(16,), mel_buckets=(bucket,))
+    bundle = es.ServingBundle(out)
+    assert bundle.manifest["device"] == "cuda"
+    bundle.tts(texts)
+    rb.reset_launches()
+    got = bundle.tts(texts, denoise=0.005)
+    assert dict(rb.LAUNCHES) == {"resblock1_wide": 27,
+                                 "resblock1_narrow": 3}
+    for g, w in zip(got, want):
+        assert g.dtype == np.int16 and g.shape == w.shape
+        assert np.abs(g.astype(np.int32) - w.astype(np.int32)).max() <= 8

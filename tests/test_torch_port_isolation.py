@@ -48,12 +48,16 @@ def test_module_walk_reaches_every_sub_package():
     for mod in ("align.mas", "align.prior", "apps.html_report",
                 "apps.inference", "apps.server", "apps.train_fastpitch",
                 "apps.train_tacotron", "apps.train_vocoder", "train.gan",
+                "apps.download", "apps.evaluate", "apps.export_serving",
+                "apps.export_torch", "apps.preprocess", "apps.smoke_test",
                 "data.dataset", "data.f0", "diacritizers.models",
-                "eval.alignment", "infer.longform", "infer.tacotron_pipeline",
-                "models.tacotron2", "ops.ctc", "ops.mas",
-                "runtime.checkpoint", "runtime.config", "runtime.logging",
-                "train.losses", "train.steps", "train.trainer",
-                "train.vocoder", "vocoder.discriminators"):
+                "eval.alignment", "eval.dtw", "eval.flops",
+                "eval.oversmoothing", "eval.plotting", "infer.longform",
+                "infer.tacotron_pipeline", "models.tacotron2", "ops.ctc",
+                "ops.mas", "runtime.checkpoint", "runtime.config",
+                "runtime.logging", "runtime.profiling", "train.losses",
+                "train.steps", "train.trainer", "train.vocoder",
+                "vocoder.discriminators"):
         assert f"tts_arabic_torch.{mod}" in names, mod
         importlib.import_module(f"tts_arabic_torch.{mod}")
 
@@ -133,6 +137,51 @@ def test_training_entry_points_raise_without_cuda(entry, monkeypatch,
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make(device="cuda")
     assert not (tmp_path / "logs").exists()
+
+
+@pytest.mark.parametrize("cli,argv", [
+    ("export_serving", ["--out", "{tmp}/bundle"]),
+    ("export_serving", ["--out", "{tmp}/bundle", "--model", "tacotron2"]),
+    ("evaluate", ["--labels", "{tmp}/labels.txt", "--wav-dir", "{tmp}"]),
+    ("smoke_test", ["--out-dir", "{tmp}/smoke"]),
+    ("smoke_test", ["--out-dir", "{tmp}/smoke", "--model", "tacotron2"])])
+def test_offline_cli_raises_without_cuda(monkeypatch, tmp_path, cli, argv):
+    """The bundle exporter, evaluate (when it synthesizes) and the smoke
+    test run on the card unless told otherwise, and raise without one."""
+    import importlib
+    main = importlib.import_module(f"tts_arabic_torch.apps.{cli}").main
+    (tmp_path / "labels.txt").write_text("")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main([a.format(tmp=tmp_path) for a in argv])
+    assert not (tmp_path / "bundle").exists()
+
+
+def test_bundles_and_download_verify_need_the_card(monkeypatch, tmp_path):
+    """A bundle exported for the card does not load without one, and
+    `download --verify` reports the missing card as its artifact's
+    failure."""
+    import json
+
+    from tts_arabic_torch.apps import download, export_serving
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    (tmp_path / "manifest.json").write_text(json.dumps(
+        {"format": 1, "model": "fastpitch2wave", "device": "cuda"}))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        export_serving.ServingBundle(tmp_path)
+    from torch_port_weights import write_weights
+    _, voc, voc_cfg = write_weights(tmp_path / "w")
+    art = tmp_path / download.FILES["hifigan-asc.pth"]["path"]
+    art.parent.mkdir(parents=True)
+    art.write_bytes(pathlib.Path(voc).read_bytes())
+    (art.parent / "config.json").write_text(pathlib.Path(voc_cfg).read_text())
+    lines = []
+    assert download.run_verify(tmp_path, ["hifigan-asc.pth"], fetcher=None,
+                               out=lines.append) == 1
+    assert "FAIL" in lines[-1] and "no CUDA device" in lines[-1]
+    assert download.run_verify(tmp_path, ["hifigan-asc.pth"], fetcher=None,
+                               out=lines.append, device="cpu") == 0
+    assert "OK" in lines[-1] and "wave 4096 samples" in lines[-1]
 
 
 def test_resblock_wrapper_refuses_other_devices():

@@ -52,6 +52,26 @@ def peak_normalize(x: np.ndarray, headroom: float = 0.999) -> np.ndarray:
     return (x / peak * headroom).astype(np.float32)
 
 
+def trim_silence_db(x: np.ndarray, top_db: float = 23.0,
+                    frame_length: int = 2048,
+                    hop_length: int = 512) -> np.ndarray:
+    """Trim leading and trailing audio quieter than `top_db` below the
+    loudest frame's RMS (librosa.effects.trim semantics, used by the
+    reference's `scripts/preprocess_audio.py:38`)."""
+    if len(x) < frame_length:
+        return x
+    n_frames = 1 + (len(x) - frame_length) // hop_length
+    idx = np.arange(n_frames)[:, None] * hop_length + np.arange(frame_length)
+    rms = np.sqrt(np.mean(x[idx] ** 2, axis=1) + 1e-12)
+    db = 20.0 * np.log10(np.maximum(rms, 1e-10) / max(rms.max(), 1e-10))
+    keep = np.flatnonzero(db > -top_db)
+    if keep.size == 0:
+        return x[:0]
+    start = keep[0] * hop_length
+    end = min(len(x), (keep[-1] + 1) * hop_length + frame_length)
+    return x[start:end]
+
+
 def mulaw_encode(x: torch.Tensor, mu: int = 255) -> torch.Tensor:
     """f32 waveform in [-1, 1] -> uint8 mu-law codes (G.711-style
     companding), on the tensor's device, so the pipeline moves a quarter of

@@ -1,4 +1,18 @@
-"""Evaluation helpers: attention-alignment diagnostics for validation."""
-from .alignment import alignment_diagnostics
+"""Evaluation: DTW alignment, oversmoothing metrics, MCD, attention-
+alignment diagnostics, FLOP counts (`eval.flops`) and plotting
+(`eval.plotting`, matplotlib imported at first use)."""
+from .alignment import (alignment_diagnostics, diagonal_band_mass,
+                        peak_drift, token_coverage)
+from .dtw import dtw_align_mels, dtw_path, using_native_kernel
+from .oversmoothing import (aligned_mae_distance,
+                            compute_mel_oversmoothing_metrics,
+                            framewise_rfft_power, mcd,
+                            oversmoothing_metrics_aligned)
 
-__all__ = ["alignment_diagnostics"]
+__all__ = [
+    "dtw_align_mels", "dtw_path", "using_native_kernel",
+    "aligned_mae_distance", "compute_mel_oversmoothing_metrics",
+    "framewise_rfft_power", "mcd", "oversmoothing_metrics_aligned",
+    "alignment_diagnostics", "diagonal_band_mass", "peak_drift",
+    "token_coverage",
+]

@@ -48,7 +48,6 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
 from .layers import dropout, init_weights, sequence_mask
 
@@ -287,19 +286,32 @@ class Tacotron2(nn.Module):
 
     # ---- encoder -------------------------------------------------------------
 
-    def _bilstm(self, x: torch.Tensor, lens_cpu: torch.Tensor) -> torch.Tensor:
+    def _bilstm(self, x: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
         """BiLSTM over [B, T, C] with packed-sequence semantics, in x's
-        dtype (the weights cast to it); zeros past each length."""
+        dtype (the weights cast to it); zeros past each length. Each
+        direction runs over the padded rows, the backward one on each row
+        reversed within its length, so no packed sequence is needed: its
+        batch sizes would be read on the host, which neither a tracer
+        (`torch.export`) nor a CUDA graph can follow."""
         lstm = self.encoder.lstm
-        packed = pack_padded_sequence(x, lens_cpu, batch_first=True,
-                                      enforce_sorted=False)
-        if x.dtype == lstm.weight_ih_l0.dtype:
-            out, _ = lstm(packed)
-        else:
-            params = {k: p.to(x.dtype) for k, p in lstm.named_parameters()}
-            out, _ = torch.func.functional_call(lstm, params, (packed,))
-        return pad_packed_sequence(out, batch_first=True,
-                                   total_length=x.shape[1])[0]
+        B, T, _ = x.shape
+        t = torch.arange(T, device=x.device)[None, :]
+        valid = t < lens[:, None]
+        # row b's step t reads step lens[b] - 1 - t; pads stay in place
+        rev = torch.where(valid, lens[:, None] - 1 - t, t)[..., None]
+
+        def run(seq, suffix):
+            w = [getattr(lstm, f"{n}_l0{suffix}").to(x.dtype)
+                 for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")]
+            h0 = x.new_zeros(1, B, lstm.hidden_size)
+            out = torch.lstm(seq, (h0, h0), w, True, 1, 0.0, lstm.training,
+                             False, True)[0]
+            return torch.where(valid[..., None], out, 0.0)
+
+        fwd = run(x, "")
+        bwd = run(x.gather(1, rev.expand_as(x)), "_reverse")
+        bwd = bwd.gather(1, rev.expand_as(bwd))
+        return torch.cat([fwd, bwd], dim=-1)
 
     def encode(self, tokens: torch.Tensor, token_lens: torch.Tensor,
                speaker_ids: Optional[torch.Tensor] = None, *,
@@ -322,7 +334,7 @@ class Tacotron2(nn.Module):
             x = torch.relu(norm(conv(torch.where(m, x, 0.0)), bn))
             if drop is not None:
                 x = drop(x)
-        x = self._bilstm(x.transpose(1, 2), token_lens.detach().cpu())
+        x = self._bilstm(x.transpose(1, 2), token_lens.to(tokens.device))
         if c.num_speakers > 1:
             if speaker_ids is None:
                 speaker_ids = torch.zeros(tokens.shape[0], dtype=torch.long,

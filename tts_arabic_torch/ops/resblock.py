@@ -19,6 +19,12 @@ the forward as without one (the kernel on the card), and a backward that
 recomputes the block with `resblock1_plain` and differentiates that, an
 activation checkpoint. The JAX package has no backward kernel either: its
 training differentiates the flax `ResBlock1` with XLA's autodiff.
+
+The kernel is also the custom op `tts_arabic::resblock1` (`resblock1_op`),
+which takes its weights already in the kernel layout (`kernel_weights`). A
+tracer sees the op, not the ctypes launch behind it, so a program exported
+with `torch.export` calls the kernel (`apps.export_serving`), with the
+kernel-layout weights made once, at export, as constants of the program.
 """
 from __future__ import annotations
 
@@ -93,7 +99,10 @@ def kernel_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return out
 
 
-def _check(x, w1, b1, w2, b2, k, dilations):
+def _check(x, w1, b1, w2, b2, k, dilations, kernel_layout=False):
+    """Raise on inputs the kernels do not take. w1, w2 in the Conv1d
+    layout [n_d, C_out, C_in, k], or with `kernel_layout` in the kernels'
+    own [n_d, k, C_in, C_out]."""
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous [B, T, C] tensor, got "
                          f"{tuple(x.shape)} contiguous={x.is_contiguous()}")
@@ -104,10 +113,15 @@ def _check(x, w1, b1, w2, b2, k, dilations):
     if k % 2 != 1 or n < 1:
         raise ValueError(f"odd kernel size and >= 1 dilation needed, got "
                          f"k={k}, dilations={tuple(dilations)}")
+    want = (n, k, C, C) if kernel_layout else (n, C, C, k)
+    layout = "the kernel layout" if kernel_layout else "the Conv1d layout"
     for name, w in (("w1", w1), ("w2", w2)):
-        if tuple(w.shape) != (n, C, C, k):
-            raise ValueError(f"{name} must be [{n}, {C}, {C}, {k}], got "
+        if tuple(w.shape) != want:
+            raise ValueError(f"{name} must be {list(want)} ({layout}), got "
                              f"{tuple(w.shape)}")
+        if kernel_layout and (w.dtype != x.dtype or not w.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous in {x.dtype}, the "
+                             "kernel layout of kernel_weights()")
     for name, b in (("b1", b1), ("b2", b2)):
         if tuple(b.shape) != (n, C):
             raise ValueError(f"{name} must be [{n}, {C}], got "
@@ -166,6 +180,36 @@ def _forward(x, w1, b1, w2, b2, kernel_size, dilations) -> torch.Tensor:
         with torch.no_grad():
             return resblock1_plain(x, w1, b1, w2, b2, kernel_size,
                                    dilations)
+    return _launch(x, kernel_weights(w1, x.dtype), b1,
+                   kernel_weights(w2, x.dtype), b2, kernel_size, dilations)
+
+
+@torch.library.custom_op("tts_arabic::resblock1", mutates_args=())
+def resblock1_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                 w2: torch.Tensor, b2: torch.Tensor, kernel_size: int,
+                 dilations: list[int]) -> torch.Tensor:
+    """ResBlock1 forward as a custom op, x [B, T, C] -> [B, T, C], its
+    convs' weights w1, w2 in the kernel layout [n_d, k, C_in, C_out] in
+    x's dtype (`kernel_weights`), biases b1, b2 [n_d, C]. A CUDA tensor
+    runs the kernel (the same launch as `resblock1`, counted in
+    LAUNCHES); a CPU tensor the plain version."""
+    _check(x, w1, b1, w2, b2, kernel_size, dilations, kernel_layout=True)
+    if x.device.type == "cpu":
+        return resblock1_plain(x, w1.permute(0, 3, 2, 1), b1,
+                               w2.permute(0, 3, 2, 1), b2, kernel_size,
+                               dilations)
+    return _launch(x, w1, b1, w2, b2, kernel_size, dilations)
+
+
+@resblock1_op.register_fake
+def _(x, w1, b1, w2, b2, kernel_size, dilations):
+    _check(x, w1, b1, w2, b2, kernel_size, dilations, kernel_layout=True)
+    return torch.empty_like(x)
+
+
+def _launch(x, w1k, b1, w2k, b2, kernel_size, dilations) -> torch.Tensor:
+    """The kernel's launches on a CUDA tensor, weights in the kernel
+    layout: one for the narrow variant, one per dilation for the wide."""
     if x.device.type != "cuda":
         raise ValueError(f"resblock1 runs on cuda or cpu, not {x.device}")
     from .build import library
@@ -182,7 +226,6 @@ def _forward(x, w1, b1, w2, b2, kernel_size, dilations) -> torch.Tensor:
                          f"{len(dilations)} dilations in {x.dtype}")
     if bf16 and x.data_ptr() % 16:     # the kernel reads x 16 bytes at once
         raise ValueError("bf16 x must start on a 16-byte boundary")
-    w1k, w2k = kernel_weights(w1, x.dtype), kernel_weights(w2, x.dtype)
     b1k = b1.contiguous().to(torch.float32)
     b2k = b2.contiguous().to(torch.float32)
     with torch.cuda.device(x.device):

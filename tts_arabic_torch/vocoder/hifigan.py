@@ -32,7 +32,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..models.layers import conv1d_same
-from ..ops.resblock import LRELU_SLOPE, resblock1
+from ..ops.resblock import (LRELU_SLOPE, kernel_weights, resblock1,
+                            resblock1_op)
 
 # per device, the streams a stage's ResBlocks run on (made at first use)
 _STREAMS: dict = {}
@@ -107,6 +108,17 @@ class ResBlock1(nn.Module):
         self.convs2 = nn.ModuleList(
             nn.Conv1d(channels, channels, kernel_size) for _ in dilations)
         self._cache = None
+        self._baked = {}
+
+    def bake(self, dtype: torch.dtype) -> None:
+        """Make the weights an exported program reads, once: stacked, the
+        convs' weights in the kernel layout in `dtype`. Under
+        `torch.export` the block calls the op `tts_arabic::resblock1` on
+        them, and the program keeps them as constants."""
+        with torch.no_grad():
+            w1, b1, w2, b2 = self._stacks()
+            self._baked[dtype] = (kernel_weights(w1, dtype), b1,
+                                  kernel_weights(w2, dtype), b2)
 
     def _stacks(self) -> tuple:
         """The convs' weights and biases stacked per pass (w1, b1, w2, b2),
@@ -129,6 +141,12 @@ class ResBlock1(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [B, T, C] contiguous -> [B, T, C]."""
+        if torch.compiler.is_exporting():
+            if x.dtype not in self._baked:
+                raise RuntimeError(f"export needs ResBlock1.bake({x.dtype}) "
+                                   "first")
+            return resblock1_op(x, *self._baked[x.dtype], self.kernel_size,
+                                list(self.dilations))
         return resblock1(x, *self._stacks(), self.kernel_size,
                          self.dilations)
 
