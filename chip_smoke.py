@@ -7,8 +7,8 @@ and the inference CLI), `Tacotron2Wave` (tts(), its decode, stream(),
 the CLI and the server), the int8 path of both pipelines, the Vocos
 vocoder, the adversarial FastPitch recipe, Tacotron2 training (MSE and
 adversarial), HiFi-GAN vocoder training, the AOT serving bundles
-(`torch.export`) and the offline apps at full width, and checks what
-comes out.
+(`torch.export`), the offline apps and a gate-controlled Tacotron2
+(`eval.gate_control`) at full width, and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -59,7 +59,8 @@ Phases, one line each (and a table for the kernel checks):
    `PERF.md`), the plain version's ms and the byte bound
 7. training: `apps.train_fastpitch.main` at full width (FastPitchConfig())
    on that corpus, one epoch (6 steps of batch 10, T_mel <= 1024), then
-   validation; PyTorch's default precision (cuDNN TF32 on, matmul TF32
+   validation without its figures (`--no-figures`: the card's machine
+   has no matplotlib; so in phases 17-18); PyTorch's default precision (cuDNN TF32 on, matmul TF32
    off). The launch counters are set to 0 just before and read just after.
    Checks: finite losses, every trained parameter moved, MAS launches =
    steps + validation batches, the MAS calls' shapes = phase 6's, and the
@@ -253,6 +254,30 @@ Phases, one line each (and a table for the kernel checks):
    serves the checkpoint's waves exactly), `smoke_test` of both models,
    and `download --verify` with a stub fetcher (one OK, one corrupt FAIL);
    each app's seconds and the phase's
+21. gate-controlled Tacotron2: `Tacotron2Wave` in bf16 with
+   `Tacotron2Config(num_speakers=64)` and HiFi-GAN V1 (the JAX bench's
+   configuration), seeded, on the 16 prompts at decoder_max_step
+   GATE_STEPS (768) and batch 16: the batch's decode-block graph
+   captured, then `eval.gate_control.install_gate_control` with min_len
+   GATE_MIN_LEN (86) from an empty cache under build/ (seconds, graph
+   replays, targets, realized lengths, off target, fired, cap preferred
+   and fallback, the gate scale, the channels and dithers) and a second
+   install, which must replay the cache with the same speakers and
+   lengths; tts(speaker_id=speakers, postprocess_mel=False,
+   out_int16=True) with the counters set to 0 just before and read just
+   after: every wave's frames = its calibrated length, at most
+   GATE_MAX_FALLBACK utterances at the cap off target, at least 3
+   distinct stops, 27 wide + 3 narrow launches a generator call, MAS 0;
+   speakers 16-31 given speakers 0-15's embedding with the gate channel
+   zeroed decode mels bit-equal over each controlled row's length (and to
+   the cap); those controlled mels vocoded through the bf16 kernels and
+   through the plain ResBlocks in f32 (SNR of each row, gated at
+   SNR_GATE); every ResBlock kernel at the generator call's stage shapes
+   ([16, 768 x samples a frame]) on seeded inputs, held against the plain
+   version in f32 (TOL) and timed beside the plain version and its bound;
+   three timed tts() (real-time factor beside phase 12's, frames
+   a token) and one under torch.profiler (the ResBlocks' share of the
+   device time, the idle share); the phase's seconds
 
 Then nvidia-smi's line again, the smoke's seconds, the kernels' JSON
 record (for each ResBlock variant its ms, plain_ms and bound_ms summed
@@ -265,7 +290,11 @@ and `adversarial_ms`, phase 17's launches and their summed kernel ms;
 `vocoder_train_ms`, `vocoder_train_plain_ms` and `vocoder_train_bound_ms`
 summed over them as timed in phase 19; `bundle_launches` and
 `tacotron2_bundle_launches`, phase 20's launches while the FastPitch and
-the Tacotron2 bundle served the 16 prompts), and last the result line. Any
+the Tacotron2 bundle served the 16 prompts; `tacotron2_gate_launches`,
+phase 21's counted tts(), and for the ResBlocks `tacotron2_gate_ms`,
+`tacotron2_gate_plain_ms`, `tacotron2_gate_bound_ms` and
+`tacotron2_gate_max_abs_err` over its generator call's stage shapes, as
+timed in phase 21), and last the result line. Any
 failure raises and the exit code is not 0; without a CUDA device the
 script exits 1 before printing any result.
 """
@@ -1012,7 +1041,7 @@ def phase_training(config_path, train: list, val: list, mas: dict,
         mas_ops.reset_launches()
         trainer = train_fastpitch.main([
             "--config", str(config_path), "--epochs", "1", "--log-every",
-            "1", "--device", "cuda"])
+            "1", "--device", "cuda", "--no-figures"])
         torch.cuda.synchronize()
         launches = {**rb.LAUNCHES, **mas_ops.LAUNCHES}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1816,7 +1845,8 @@ def phase_tacotron2(smi: str) -> dict:
     graphed and eager, a DECODE_BLOCK sweep, a ragged-stop batch, one
     tts() under torch.profiler, fused = host path, the kernels against
     the plain ResBlocks, stream() against tts_single(postprocess_mel=
-    False); returns the ResBlock launches of the counted tts()."""
+    False); returns the ResBlock launches of the counted tts() and its
+    real-time factor."""
     from tts_arabic_torch.models import tacotron2 as t2
     from tts_arabic_torch.ops import mas as mas_ops
     from tts_arabic_torch.ops import resblock as rb
@@ -2036,7 +2066,7 @@ def phase_tacotron2(smi: str) -> dict:
         f"| {smi}")
     del pipe, m, waves, fused, host, mels
     torch.cuda.empty_cache()
-    return launches
+    return launches, audio_s / walls[-1]
 
 
 def phase_tacotron2_apps(smi: str, tmp: pathlib.Path) -> None:
@@ -2853,7 +2883,7 @@ def phase_adversarial(root: pathlib.Path, smi: str) -> dict:
         mas_ops.reset_launches()
         trainer = train_fastpitch.main([
             "--config", str(config_path), "--adv", "--epochs", "1",
-            "--log-every", "1", "--device", "cuda"])
+            "--log-every", "1", "--device", "cuda", "--no-figures"])
         torch.cuda.synchronize()
         launches = {**rb.LAUNCHES, **mas_ops.LAUNCHES}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2975,7 +3005,7 @@ def _t2_run(train_tacotron, config_path, flags: list) -> tuple:
         mas_ops.reset_launches()
         trainer = train_tacotron.main([
             "--config", str(config_path), "--max-steps", str(T2_STEPS),
-            "--log-every", "1", "--device", "cuda"] + flags)
+            "--log-every", "1", "--device", "cuda", "--no-figures"] + flags)
         torch.cuda.synchronize()
         launched = sum(rb.LAUNCHES.values()) + mas_ops.LAUNCHES["mas"]
     if launched:
@@ -3830,6 +3860,232 @@ def phase_offline_apps(smi: str, tmp: pathlib.Path,
     return secs
 
 
+# ---- gate-controlled Tacotron2 ---------------------------------------------
+
+GATE_STEPS = 768        # the JAX bench's Tacotron2 step cap (bench.py:66)
+GATE_MIN_LEN = 86       # its floor on the gate stops, ~1 s (bench.py:73)
+GATE_SPEAKERS = 64      # its config (bench.py:462-464)
+GATE_MAX_FALLBACK = 2   # utterances that may decode to the cap off target
+
+
+def gate_kernel_times(calls: list, smi: str) -> dict:
+    """The bf16 ResBlock kernels at the stage shapes of phase 21's
+    generator calls (`calls`: their mel shapes), on seeded inputs: each
+    held against the plain version in f32 (TOL), then timed beside the
+    plain version on the same bf16 inputs and its bound. Returns, per
+    variant, ms, plain_ms, bound_ms and max_abs_err summed (errors: the
+    largest) over the calls' stages."""
+    from tts_arabic_torch.ops import resblock as rb
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    dt = torch.bfloat16
+    out = {}
+    rows = []
+    for b, f, _ in calls:
+        for C, per_frame in STAGE_T.items():
+            name, T = rb.variant(C), f * per_frame
+            for k in KERNEL_SIZES:
+                args, err, rel = _rel_err(rb, name, C, k, T, dt, gen, b)
+                ms = cuda_ms(lambda: _launch(rb, name, *args, k))
+                plain_ms = cuda_ms(lambda: rb.resblock1_plain(
+                    *args, k, DILATIONS))
+                b_ms = max(bound(C, k, T, dt, batch=b))
+                s = out.setdefault(name, dict(ms=0.0, plain_ms=0.0,
+                                              bound_ms=0.0, max_abs_err=0.0))
+                s["ms"] += ms
+                s["plain_ms"] += plain_ms
+                s["bound_ms"] += b_ms
+                s["max_abs_err"] = max(s["max_abs_err"], err)
+                rows.append(f"{name[10:]} C={C} k={k} [{b}, {T}] err "
+                            f"{rel:.2e} {ms:.3f}/{plain_ms:.3f}/{b_ms:.3f}")
+                del args
+    torch.cuda.empty_cache()
+    log(f"[21 gate kernels] bf16 at the generator call's stage shapes, "
+        f"seeded inputs, err = max|kernel - plain f32| / max|plain| (<= "
+        f"{TOL[dt]:.0e}), kernel/plain bf16/bound ms: " + "; ".join(rows)
+        + " | " + "; ".join(
+            f"{n}: {v['ms']:.3f} ms, plain {v['plain_ms']:.3f}, bound "
+            f"{v['bound_ms']:.3f}" for n, v in out.items()) + f" | {smi}")
+    return out
+
+
+def phase_gate_control(smi: str, t2_rtf: float) -> dict:
+    """Tacotron2Wave in bf16 with 64 speakers (the JAX bench's
+    configuration) under `eval.gate_control`, on the 16 prompts at
+    decoder_max_step GATE_STEPS and batch 16: the decode-block graph of
+    the batch captured, then install_gate_control (calibration from an
+    empty cache, then a second install that must replay it), tts() of the
+    16 prompts with the counters set to 0 just before and read just after
+    (the waves' lengths = the calibrated ones, 27 wide + 3 narrow
+    launches a generator call, MAS 0), the gate channel's mels held bit
+    for bit against speakers with it zeroed, three timed tts() and one
+    under torch.profiler; the controlled decode's mels vocoded through the
+    kernels and through the plain ResBlocks in f32 (SNR_GATE), and the
+    kernels timed at the generator call's stage shapes. Returns the
+    ResBlock launches of the counted tts() and, per variant, the times of
+    `gate_kernel_times`."""
+    from tts_arabic_torch.eval import install_gate_control
+    from tts_arabic_torch.eval.gate_control import decode_in_tts_order
+    from tts_arabic_torch.models.tacotron2 import Tacotron2Config
+    from tts_arabic_torch.ops import mas as mas_ops
+    from tts_arabic_torch.ops import resblock as rb
+    from tts_arabic_torch.vocoder import hifigan
+    set_tf32(False)
+    t_phase = time.perf_counter()
+    prompts = load_prompts(N_PROMPTS)
+    B = len(prompts)
+    pipe = t2_pipe(compute_dtype=torch.bfloat16,
+                   config=Tacotron2Config(num_speakers=GATE_SPEAKERS))
+    m = pipe.model
+    m.decoder_max_step = GATE_STEPS
+    tokens = m.tokenize_batch(prompts)
+    n_tokens = [len(t) for t in tokens]
+    bucket = m._sorted_batch(tokens, 0, B)[0].shape[1]
+    t0 = time.perf_counter()
+    m.capture_graphs((B,), (bucket,))
+    capture_s = time.perf_counter() - t0
+
+    kw = dict(min_len=GATE_MIN_LEN)
+    with tempfile.TemporaryDirectory(prefix="smoke_gate_cache_",
+                                     dir=ROOT / "build") as cache, \
+            mock.patch.dict("os.environ",
+                            {"TTS_ARABIC_TORCH_GATE_CACHE": cache}):
+        replays = m.graph_replays
+        t0 = time.perf_counter()
+        speakers, lengths, report = install_gate_control(pipe, prompts, **kw)
+        cal_s = time.perf_counter() - t0
+        cal_replays = m.graph_replays - replays
+        t0 = time.perf_counter()
+        spk2, len2, rep2 = install_gate_control(pipe, prompts, **kw)
+        hit_s = time.perf_counter() - t0
+    stops = sorted({int(n) for n in lengths if n < GATE_STEPS})
+    log(f"[21 gate control] Tacotron2Config(num_speakers={GATE_SPEAKERS}) "
+        f"bf16, HiFi-GAN V1 bf16, {B} prompts, batch {B}, decoder_max_step "
+        f"{GATE_STEPS}, min_len {GATE_MIN_LEN}: capture_graphs() at batch "
+        f"{B}, text {bucket}: {capture_s:.2f} s | install "
+        f"{cal_s:.1f} s (cache {report['cache']}, {cal_replays} block "
+        f"replays) | targets {report['targets']} | realized "
+        f"{report['realized_lengths']} | off target {report['off_target']}"
+        f", fired {report['n_fired']}, cap preferred "
+        f"{report['cap_preferred']}, cap fallback {report['cap_fallback']} "
+        f"| amplify {report['amplify']:g}, gap {report['gap']:g}, gate "
+        f"channel {report['gate_channel']}, dither channel "
+        f"{report['dither_channel']}, dithers {report['dithers']} | "
+        f"second install {hit_s:.2f} s, cache {rep2['cache']} | {smi}")
+    if report["cache"] != "miss" or rep2["cache"] != "hit" or not (
+            np.array_equal(spk2, speakers) and np.array_equal(len2, lengths)):
+        raise AssertionError(f"gate control: first install "
+                             f"{report['cache']}, second {rep2['cache']} "
+                             f"with {len2.tolist()} against "
+                             f"{lengths.tolist()}")
+    if report["cap_fallback"] > GATE_MAX_FALLBACK or len(stops) < 3:
+        raise AssertionError(f"gate control: {report['cap_fallback']} cap "
+                             f"fallbacks, distinct stops {stops}")
+
+    tts_kw = dict(batch_size=B, denoise=0.005, speaker_id=speakers,
+                  postprocess_mel=False, out_int16=True)
+    with generator_calls() as calls:
+        rb.reset_launches()
+        mas_ops.reset_launches()
+        waves = pipe.tts(prompts, **tts_kw)
+        launches = dict(rb.LAUNCHES)
+    want = {"resblock1_wide": 27 * len(calls),
+            "resblock1_narrow": 3 * len(calls)}
+    if launches != want or mas_ops.LAUNCHES["mas"]:
+        raise AssertionError(f"gate-controlled tts() launches {launches}, "
+                             f"expected {want}, mas 0")
+    hop = pipe.hop_length
+    realized = [len(w) // hop for w in waves]
+    match = sum(r == n for r, n in zip(realized, lengths))
+    for i, w in enumerate(waves):
+        if not (w.ndim == 1 and w.dtype == np.int16 and w.size % hop == 0):
+            raise AssertionError(f"gate-controlled prompt {i}: bad wave")
+    if match != B:
+        raise AssertionError(f"tts() lengths {realized} against the "
+                             f"calibrated {lengths.tolist()}")
+    log(f"[21 gate tts] tts(speaker_id=speakers, postprocess_mel=False, "
+        f"out_int16=True): lengths = the calibrated ones {match}/{B}, "
+        f"distinct stops {len(stops)} ({stops[0]}-{stops[-1]}) | "
+        f"generator calls (mel shapes) {calls} | launches {launches}, mas 0")
+
+    # the gate channel reaches only the gate: speakers B..2B-1 take
+    # speakers 0..B-1's embedding with the gate channel zeroed
+    emb = m.model.speaker_embedding.weight
+    with torch.no_grad():
+        emb[B: 2 * B] = emb[:B]
+        emb[B: 2 * B, report["gate_channel"]] = 0.0
+    ctl = decode_in_tts_order(m, prompts, speakers)
+    ref = decode_in_tts_order(m, prompts, speakers + B)
+    rows = ctl["mel_lens"].tolist()
+    exact = sum(torch.equal(ctl["mel"][r, :L], ref["mel"][r, :L])
+                for r, L in enumerate(rows))
+    if exact != B or ref["mel_lens"].min() < GATE_STEPS:
+        raise AssertionError(f"gate channel: {exact}/{B} rows bit-equal, "
+                             f"the zeroed channel's lengths "
+                             f"{ref['mel_lens'].tolist()}")
+    log(f"[21 gate channel] speakers {B}-{2 * B - 1} = speakers 0-{B - 1} "
+        f"with the gate channel zeroed: mels over each controlled row's "
+        f"length bit-equal {exact}/{B}; those rows decode to the cap "
+        f"{GATE_STEPS}")
+
+    # the kernels against the plain ResBlocks in f32 on the controlled
+    # decode's mels, vocoded as the counted tts() vocoded them
+    mels = [ctl["mel_postnet"][r, :L].float().cpu().numpy().T
+            for r, L in enumerate(rows)]
+    wave_k, lens_k = pipe._dispatch_vocode(mels, 0.005)
+    with mock.patch.object(hifigan, "resblock1", _plain_f32):
+        wave_p, _ = pipe._dispatch_vocode(mels, 0.005)
+    snrs = [snr_db(p, k) for k, p in zip(pipe._split_waves(wave_k, lens_k),
+                                         pipe._split_waves(wave_p, lens_k))]
+    gate = SNR_GATE[torch.bfloat16]
+    log(f"[21 gate vocoder] the controlled decode's mels ({B} rows at "
+        f"their lengths, one generator call of {max(rows)} frames): bf16 "
+        f"kernels vs plain ResBlocks in f32, SNR min {min(snrs):.2f}, "
+        f"median {float(np.median(snrs)):.2f} dB (> {gate}) | {smi}")
+    if not min(snrs) > gate:
+        raise AssertionError(f"gate-controlled vocoder SNR {snrs}")
+    timed = gate_kernel_times(calls, smi)
+
+    walls = []
+    for _ in range(N_TIMED):
+        t0 = time.perf_counter()
+        waves = pipe.tts(prompts, **tts_kw)
+        walls.append(time.perf_counter() - t0)
+    audio_s = sum(w.size for w in waves) / pipe.sample_rate
+    frames = int(sum(lengths))
+    log(f"[21 gate rate] tts() {audio_s:.2f} s of audio ({frames} frames, "
+        f"{frames / sum(n_tokens):.2f} frames a token over "
+        f"{sum(n_tokens)} tokens): walls "
+        f"{', '.join(f'{w:.3f}' for w in walls)} s = "
+        f"{audio_s / min(walls):.1f}x real time (best of {N_TIMED}) | "
+        f"phase 12's f32 decode to the 3000-step cap {t2_rtf:.1f}x | {smi}")
+
+    got = profiled(lambda: pipe.tts(prompts, **tts_kw))
+    if got is None:
+        log(f"[21 gate profile] no device events recorded, not measured | "
+            f"{smi}")
+    else:
+        wall, by_name, busy, n_ops = got
+        rb_ms = sum(v for n, v in by_name.items() if "resblock1" in n)
+        wide_ms = sum(v for n, v in by_name.items()
+                      if "resblock1_pass" in n)
+        rb_bound = {n: v["bound_ms"] for n, v in timed.items()}
+        dev = sum(by_name.values())
+        log(f"[21 gate profile] tts() under torch.profiler: wall "
+            f"{wall * 1e3:.1f} ms, device busy {busy:.1f} ms (idle "
+            f"{100 * (1 - busy / 1e3 / wall):.1f}%), {n_ops} device ops "
+            f"summing {dev:.1f} ms | ResBlock kernels {rb_ms:.1f} ms = "
+            f"{100 * rb_ms / dev:.1f}% of the device time: wide (bf16) "
+            f"{wide_ms:.2f} ms, bound {rb_bound['resblock1_wide']:.3f}; "
+            f"narrow {rb_ms - wide_ms:.2f} ms, bound "
+            f"{rb_bound['resblock1_narrow']:.3f} | top: "
+            + "; ".join(f"{n} {v:.1f} ms" for n, v in by_name.most_common(8))
+            + f" | {smi}")
+    log(f"[21] the phase: {time.perf_counter() - t_phase:.1f} s")
+    del pipe, m, waves, ctl, ref, wave_k, wave_p
+    torch.cuda.empty_cache()
+    return launches, timed
+
+
 def main() -> int:
     global T_START
     T_START = time.perf_counter()
@@ -3875,7 +4131,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="smoke_apps_",
                                      dir=build_dir) as tmp:
         phase_apps(smi, pathlib.Path(tmp))
-    t2_launches = phase_tacotron2(smi)
+    t2_launches, t2_rtf = phase_tacotron2(smi)
     with tempfile.TemporaryDirectory(prefix="smoke_t2_apps_",
                                      dir=build_dir) as tmp:
         phase_tacotron2_apps(smi, pathlib.Path(tmp))
@@ -3909,6 +4165,7 @@ def main() -> int:
         f"{bundles_s:.1f} s, of it exports {fp_bundle['export_s']:.1f} + "
         f"{t2_bundle['export_s']:.1f} s; the apps "
         f"{time.perf_counter() - t1:.1f} s)")
+    gate_launches, gate_timed = phase_gate_control(smi, t2_rtf)
     replaces = {
         "resblock1_wide": "tts_arabic_tpu/ops/hifigan_pallas.py:153",
         "resblock1_narrow": "tts_arabic_tpu/ops/hifigan_pallas.py:547",
@@ -3934,7 +4191,13 @@ def main() -> int:
             # phase 20: launches inside the exported wave programs while a
             # bundle served the 16 prompts (FastPitch, Tacotron2)
             "bundle_launches": fp_bundle["launches"][kname],
-            "tacotron2_bundle_launches": t2_bundle["launches"][kname]})
+            "tacotron2_bundle_launches": t2_bundle["launches"][kname],
+            # phase 21: the gate-controlled bf16 Tacotron2's counted tts(),
+            # and its kernel, plain and bound ms and error summed over the
+            # stage shapes of its generator call
+            "tacotron2_gate_launches": gate_launches[kname],
+            **{f"tacotron2_gate_{k}": v
+               for k, v in gate_timed[kname].items()}})
     # one MAS launch per training step and validation batch, each timed at
     # its own batch's shape in phase 6
     kernels.append({
@@ -3948,7 +4211,8 @@ def main() -> int:
         "bound_by": "bytes", "library_ms": None, "tacotron2_launches": 0,
         "int8_launches": 0, "adversarial_launches": adv["launches"],
         "adversarial_ms": adv["mas_ms"], "vocoder_train_launches": 0,
-        "bundle_launches": 0, "tacotron2_bundle_launches": 0})
+        "bundle_launches": 0, "tacotron2_bundle_launches": 0,
+        "tacotron2_gate_launches": 0})
     log(smi)
     log(f"[smoke] every phase passed in {time.perf_counter() - T_START:.1f} "
         "s")

@@ -993,3 +993,65 @@ def test_bundle_exported_on_the_card_equals_the_live_path(cuda, tmp_path):
     for g, w in zip(got, want):
         assert g.dtype == np.int16 and g.shape == w.shape
         assert np.abs(g.astype(np.int32) - w.astype(np.int32)).max() <= 8
+
+
+# the JAX package's gate-control test settings (tests/test_gate_control.py)
+GATE_TEXTS = ["ذَهَبَ الوَلَدُ", "صِفر", "كِتاب جَدِيد", "شَمس"]
+GATE_TARGETS = [120, 40, 90, 64]
+GATE_MS = dict(
+    n_symbols=40, symbol_embedding_dim=32, encoder_embedding_dim=32,
+    num_speakers=8, speaker_embedding_dim=16, decoder_rnn_dim=48,
+    attention_rnn_dim=48, attention_hidden_dim=16,
+    attention_location_n_filters=4, attention_location_kernel_size=7,
+    prenet_dim=16, postnet_embedding_dim=32, postnet_n_convolutions=3,
+    n_mels=80, decoder_max_step=160)
+
+
+@pytest.mark.cuda
+def test_gate_control_on_graphed_decodes(cuda, tmp_path, monkeypatch):
+    """Calibrated on the card, on numpy-seeded weights at the JAX test's
+    widths (the port's own seed-0 init has no stop to reach there: its
+    gate logit peaks at step 0 in every row under each of the three
+    dithers, on the CPU as on the card), with the batch's decode-block
+    graph captured:
+    the calibration's live decodes replay it (its no-early-stop probes
+    may not), the graphed and the eager decode realize the calibrated
+    lengths, tts() too, and a second install replays the cache."""
+    from unittest import mock
+
+    import numpy as np
+
+    from tts_arabic_torch.eval import install_gate_control
+    from tts_arabic_torch.eval.gate_control import decode_in_tts_order
+    from tts_arabic_torch.infer import Tacotron2Wave
+    from torch_port_weights import write_tacotron2_weights
+    from tts_arabic_torch.models.tacotron2 import Tacotron2Config
+    monkeypatch.setenv("TTS_ARABIC_TORCH_GATE_CACHE", str(tmp_path))
+    pipe = Tacotron2Wave(write_tacotron2_weights(
+        tmp_path, Tacotron2Config(**GATE_MS)), device="cuda")
+    m = pipe.model
+    m.decoder_max_step = 160
+    n_ids = max(len(t) for t in m.tokenize_batch(list(GATE_TEXTS)))
+    m.capture_graphs((4,), (-(-n_ids // 16) * 16,))
+    kw = dict(postprocess_mel=False, dither_candidates=(0.0, 1.0, -1.0))
+    speakers, lengths, report = install_gate_control(
+        pipe, GATE_TEXTS, GATE_TARGETS, **kw)
+    assert report["cache"] == "miss" and m.graph_replays > 0
+    assert report["n_fired"] >= 3 and report["cap_fallback"] <= 1
+
+    def decode():
+        return decode_in_tts_order(m, GATE_TEXTS, speakers)[
+            "mel_lens"].cpu().numpy()
+    replays = m.graph_replays
+    np.testing.assert_array_equal(decode(), lengths)
+    assert m.graph_replays > replays
+    with mock.patch.dict(m._graphs, clear=True):
+        np.testing.assert_array_equal(decode(), lengths)
+    waves = pipe.tts(list(GATE_TEXTS), speaker_id=speakers, batch_size=4,
+                     denoise=0.0, postprocess_mel=False)
+    assert [len(w) // pipe.hop_length for w in waves] == list(lengths)
+    spk2, len2, rep2 = install_gate_control(pipe, GATE_TEXTS, GATE_TARGETS,
+                                            **kw)
+    assert rep2["cache"] == "hit"
+    np.testing.assert_array_equal(spk2, speakers)
+    np.testing.assert_array_equal(len2, lengths)

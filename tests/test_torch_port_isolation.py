@@ -52,6 +52,7 @@ def test_module_walk_reaches_every_sub_package():
                 "apps.export_torch", "apps.preprocess", "apps.smoke_test",
                 "data.dataset", "data.f0", "diacritizers.models",
                 "eval.alignment", "eval.dtw", "eval.flops",
+                "eval.gate_control",
                 "eval.oversmoothing", "eval.plotting", "infer.longform",
                 "infer.tacotron_pipeline", "models.tacotron2", "ops.ctc",
                 "ops.mas", "runtime.checkpoint", "runtime.config",
@@ -60,6 +61,18 @@ def test_module_walk_reaches_every_sub_package():
                 "vocoder.discriminators"):
         assert f"tts_arabic_torch.{mod}" in names, mod
         importlib.import_module(f"tts_arabic_torch.{mod}")
+
+
+def test_gate_control_cache_stays_in_the_checkout(monkeypatch, tmp_path):
+    """The calibration cache is the port's own: `build/gate_cache` in the
+    checkout (git-ignored), or `$TTS_ARABIC_TORCH_GATE_CACHE`; the JAX
+    package's variable does not move it."""
+    from tts_arabic_torch.eval import gate_control
+    monkeypatch.delenv("TTS_ARABIC_TORCH_GATE_CACHE", raising=False)
+    monkeypatch.setenv("TTS_ARABIC_GATE_CACHE", str(tmp_path / "jax"))
+    assert gate_control._cache_dir() == PORT.parent / "build" / "gate_cache"
+    monkeypatch.setenv("TTS_ARABIC_TORCH_GATE_CACHE", str(tmp_path))
+    assert gate_control._cache_dir() == tmp_path
 
 
 def test_no_source_file_imports_jax_or_the_jax_package():

@@ -392,7 +392,8 @@ def test_eval_step_matches_jax(ref, no_conv_dropout):
     model = _port_model(ref)
     before = {k: v.clone() for k, v in model.state_dict().items()}
     state = port_steps.TrainState(model, port_steps.make_optimizer(model))
-    meta = port_steps.make_tacotron_eval_step(device="cpu")(state, _batch())
+    meta, _ = port_steps.make_tacotron_eval_step(device="cpu")(state,
+                                                                _batch())
     assert set(meta) == set(ref["eval"])
     for k, v in meta.items():
         np.testing.assert_allclose(float(v), float(ref["eval"][k]),

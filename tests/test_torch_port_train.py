@@ -255,7 +255,8 @@ def test_eval_step_matches_train_forward(ref):
     model = _port_model(ref)
     before = {k: v.clone() for k, v in model.state_dict().items()}
     state = port_steps.TrainState(model, port_steps.make_optimizer(model))
-    meta = port_steps.make_fastpitch_eval_step(device="cpu")(state, _batch())
+    meta, _ = port_steps.make_fastpitch_eval_step(device="cpu")(state,
+                                                                 _batch())
     want = ref["meta"]
     np.testing.assert_allclose(
         float(meta["loss"]), float(want["loss"]) + float(want["kl_loss"]),

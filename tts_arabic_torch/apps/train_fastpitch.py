@@ -43,6 +43,9 @@ def main(argv=None) -> Trainer:
     parser.add_argument("--max-steps", type=int, default=None,
                         help="stop after this many updates")
     parser.add_argument("--log-every", type=int, default=10)
+    parser.add_argument("--no-figures", action="store_true",
+                        help="validate without the alignment and mel "
+                             "figures (they need matplotlib)")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
@@ -97,7 +100,8 @@ def main(argv=None) -> Trainer:
         trainer.fit(dyn, collate_fastpitch,
                     epochs=args.epochs or config.epochs,
                     log_every=args.log_every, val_dataset=val_dyn,
-                    eval_fn=eval_fn, max_steps=args.max_steps)
+                    eval_fn=eval_fn, max_steps=args.max_steps,
+                    figures=not args.no_figures)
     finally:
         trainer.close()
     return trainer

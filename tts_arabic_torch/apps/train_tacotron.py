@@ -81,6 +81,9 @@ def main(argv=None) -> Trainer:
     parser.add_argument("--max-steps", type=int, default=None,
                         help="stop after this many updates")
     parser.add_argument("--log-every", type=int, default=10)
+    parser.add_argument("--no-figures", action="store_true",
+                        help="validate without the alignment and mel "
+                             "figures (they need matplotlib)")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
@@ -130,7 +133,8 @@ def main(argv=None) -> Trainer:
         trainer.fit(batches, collate_tacotron,
                     epochs=args.epochs or config.epochs,
                     log_every=args.log_every, val_dataset=val_batches,
-                    eval_fn=eval_fn, max_steps=args.max_steps)
+                    eval_fn=eval_fn, max_steps=args.max_steps,
+                    figures=not args.no_figures)
     finally:
         trainer.close()
     return trainer

@@ -257,8 +257,10 @@ def _ceil_to(n, m):
     return ((n + m - 1) // m) * m
 
 
-def collate_fastpitch(batch: List[dict]) -> dict:
-    """Pad a list of ArabDatasetFastPitch items to bucket shapes.
+def collate_fastpitch(batch: List[dict], text_mult: int = TEXT_PAD,
+                      mel_mult: int = MEL_PAD) -> dict:
+    """Pad a list of ArabDatasetFastPitch items to bucket shapes: text to a
+    multiple of `text_mult`, mels to a multiple of `mel_mult`.
 
     Returns feature-last numpy arrays for the FastPitch train step:
     tokens [B, T_txt], mel_tgt [B, T_mel, 80], pitch_dense [B, 1, T_mel],
@@ -266,8 +268,8 @@ def collate_fastpitch(batch: List[dict]) -> dict:
     mel_lens [B].
     """
     B = len(batch)
-    t_max = _ceil_to(max(len(s["token_ids"]) for s in batch), TEXT_PAD)
-    m_max = _ceil_to(max(s["mel"].shape[1] for s in batch), MEL_PAD)
+    t_max = _ceil_to(max(len(s["token_ids"]) for s in batch), text_mult)
+    m_max = _ceil_to(max(s["mel"].shape[1] for s in batch), mel_mult)
     n_mels = batch[0]["mel"].shape[0]
 
     tokens = np.zeros((B, t_max), np.int32)
@@ -294,14 +296,16 @@ def collate_fastpitch(batch: List[dict]) -> dict:
             "energy_dense": energy, "attn_prior": prior}
 
 
-def collate_tacotron(batch: List[tuple]) -> dict:
-    """Pad (token_ids, log_mel) pairs; the gate target is 1 from each
+def collate_tacotron(batch: List[tuple], text_mult: int = TEXT_PAD,
+                     mel_mult: int = MEL_PAD) -> dict:
+    """Pad (token_ids, log_mel) pairs, text to a multiple of `text_mult`
+    and mels to one of `mel_mult`; the gate target is 1 from each
     sample's last frame onward (reference `text_mel_collate_fn`,
     data.py:13-47). Returns tokens [B, T_txt], token_lens, mel_tgt
     [B, T_mel, 80] feature-last, gate_tgt [B, T_mel] and mel_lens."""
     B = len(batch)
-    t_max = _ceil_to(max(len(t) for t, _ in batch), TEXT_PAD)
-    m_max = _ceil_to(max(m.shape[1] for _, m in batch), MEL_PAD)
+    t_max = _ceil_to(max(len(t) for t, _ in batch), text_mult)
+    m_max = _ceil_to(max(m.shape[1] for _, m in batch), mel_mult)
     n_mels = batch[0][1].shape[0]
 
     tokens = np.zeros((B, t_max), np.int32)

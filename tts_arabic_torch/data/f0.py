@@ -14,9 +14,9 @@ hop 256):
     semitone, triangular local-transition window, 0.01 switch probability)
 
 Unvoiced frames yield 0.0 (the reference maps librosa's NaN to 0,
-`scripts/extract_f0.py:41`). This is offline host preprocessing, not on
-the card. The JAX package's single-threshold `method="yin"` is not copied:
-nothing on the training path asks for it.
+`scripts/extract_f0.py:41`). `method="yin"` is the classic
+single-threshold YIN on reflect-padded frames, faster but octave-fragile
+on real speech. This is offline host preprocessing, not on the card.
 """
 from __future__ import annotations
 
@@ -36,10 +36,10 @@ _SWITCH_PROB = 0.01
 _NO_TROUGH_PROB = 0.01
 
 
-def _frame(x: np.ndarray, frame_length: int,
-           hop_length: int) -> np.ndarray:
+def _frame(x: np.ndarray, frame_length: int, hop_length: int,
+           pad_mode: str = "constant") -> np.ndarray:
     pad = frame_length // 2
-    xp = np.pad(np.asarray(x, np.float64), pad)
+    xp = np.pad(np.asarray(x, np.float64), pad, mode=pad_mode)
     n_frames = 1 + (len(xp) - frame_length) // hop_length
     idx = (np.arange(n_frames)[:, None] * hop_length
            + np.arange(frame_length)[None, :])
@@ -231,24 +231,61 @@ def _pyin_track(cmndf: np.ndarray, tau_min: int, tau_max: int,
     return np.where(voiced, freqs, 0.0)
 
 
+# --- classic single-threshold YIN -------------------------------------------
+
+def _yin_track(cmndf: np.ndarray, tau_min: int, tau_max: int,
+               sample_rate: float, fmin: float, fmax: float,
+               threshold: float) -> np.ndarray:
+    """Per frame: the first lag in [tau_min, tau_max) whose normalized
+    difference falls below `threshold`, walked down to the local minimum
+    after it and refined by a parabola; 0 where none falls below or the
+    frequency leaves [fmin, fmax]."""
+    region = cmndf[:, tau_min:tau_max]
+    below = region < threshold
+    voiced = below.any(axis=1)
+    best = np.argmax(below, axis=1)
+    rows = np.arange(len(best))
+    for _ in range(tau_max):  # bounded walk, all frames at once
+        nxt = np.minimum(best + 1, region.shape[1] - 1)
+        go = (region[rows, nxt] < region[rows, best]) & voiced
+        if not go.any():
+            break
+        best = np.where(go, nxt, best)
+    best_tau = np.clip(best + tau_min, 1, tau_max - 2)
+    tau_refined = best_tau + _parabolic_shifts(cmndf)[rows, best_tau]
+    f0 = np.where(voiced, sample_rate / np.maximum(tau_refined, 1e-6), 0.0)
+    return np.where((f0 >= fmin) & (f0 <= fmax), f0, 0.0)
+
+
 def estimate_f0(x: np.ndarray, sample_rate: int = 22050,
-                hop_length: int = 256) -> np.ndarray:
-    """Per-frame f0 in Hz (0 = unvoiced), aligned with the mel frames:
-    pYIN over C2..C7 with 1024-sample frames, as the reference's
+                frame_length: int = FRAME_LENGTH, hop_length: int = 256,
+                fmin: float = C2, fmax: float = C7,
+                threshold: float = 0.15,
+                method: str = "pyin") -> np.ndarray:
+    """Per-frame f0 in Hz (0 = unvoiced), aligned with the mel frames.
+
+    method="pyin" (default): probabilistic YIN, as the reference's
     librosa.pyin extraction (multi-threshold candidates + Viterbi voicing,
-    robust to octave hops and noise)."""
-    fmin, fmax = C2, C7
-    frames = _frame(x, FRAME_LENGTH, hop_length)
+    robust to octave hops and noise). method="yin": the classic
+    single-threshold YIN (`threshold`), faster but octave-fragile."""
+    if method not in ("pyin", "yin"):
+        raise ValueError(f"unknown f0 method '{method}'")
+    frames = _frame(x, frame_length, hop_length,
+                    "constant" if method == "pyin" else "reflect")
     tau_min = max(2, int(sample_rate / fmax))
-    tau_max = min(int(sample_rate / fmin) + 1, FRAME_LENGTH // 2)
+    tau_max = min(int(sample_rate / fmin) + 1, frame_length // 2)
     cmndf = _cmndf(_difference_function(frames, tau_max))
-    f0 = _pyin_track(cmndf, tau_min, tau_max, sample_rate, hop_length,
-                     fmin, fmax)
+    if method == "yin":
+        f0 = _yin_track(cmndf, tau_min, tau_max, sample_rate, fmin, fmax,
+                        threshold)
+    else:
+        f0 = _pyin_track(cmndf, tau_min, tau_max, sample_rate, hop_length,
+                         fmin, fmax)
     return f0.astype(np.float32)
 
 
 def extract_f0_dict(wav_paths, sample_rate: int = 22050,
-                    hop_length: int = 256):
+                    hop_length: int = 256, method: str = "pyin"):
     """Batch-extract f0 for a corpus -> ({name: f0}, mean, std over voiced
     frames) (`scripts/extract_f0.py:25-78` equivalent)."""
     import os
@@ -258,7 +295,8 @@ def extract_f0_dict(wav_paths, sample_rate: int = 22050,
     total, total_sq, count = 0.0, 0.0, 0
     for p in wav_paths:
         wave, _ = load_wav(p, target_sr=sample_rate)
-        f0 = estimate_f0(wave, sample_rate, hop_length=hop_length)
+        f0 = estimate_f0(wave, sample_rate, hop_length=hop_length,
+                         method=method)
         out[os.path.basename(str(p))] = f0
         voiced = f0[f0 > 0]
         total += voiced.sum()

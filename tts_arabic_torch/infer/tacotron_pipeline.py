@@ -238,8 +238,9 @@ class Tacotron2TTS:
     def capture_graphs(self, batch_sizes=(1,), text_buckets=(16, 32)) -> None:
         """Record one decode block (`Tacotron2.decode_block`) as a CUDA
         graph for each (batch size, padded text length), in the compute
-        dtype and at `decoder_max_step`. A decode or stream segment of that
-        shape then replays it, block after block; other shapes run the
+        dtype, at `decoder_max_step` and with the model config's
+        `decoder_early_stopping` (`_graph_key`). A decode or stream segment
+        of that key then replays it, block after block; others run the
         block eagerly. Does nothing off the card. The graphs of one call
         share a memory pool for their intermediates; a block reads and
         writes only tensors allocated outside it, and a call copies its
@@ -252,7 +253,7 @@ class Tacotron2TTS:
         with _exact_f32():
             for B in batch_sizes:
                 for T in text_buckets:
-                    key = (B, T, S, dt)
+                    key = self._graph_key(B, T)
                     if key in self._graphs:
                         continue
                     memory = torch.zeros((B, T, c.memory_dim), dtype=dt,
@@ -284,12 +285,19 @@ class Tacotron2TTS:
                                          limit)
         torch.cuda.synchronize(dev)
 
+    def _graph_key(self, batch: int, text_len: int) -> tuple:
+        """What a captured block depends on besides the weights: the shape,
+        the step cap, the dtype, and whether the run flag drops once every
+        row has stopped (a block recorded with early stopping stops where a
+        decode without it must go on)."""
+        return (batch, text_len, self.decoder_max_step, self.dtype,
+                self.model.config.decoder_early_stopping)
+
     def _runner(self, batch: int, text_len: int):
         """The graph replay of the blocks of a segment at this shape, in the
         signature of `Tacotron2.run_segment`; None when no graph was
         captured for it."""
-        entry = self._graphs.get((batch, text_len, self.decoder_max_step,
-                                  self.dtype))
+        entry = self._graphs.get(self._graph_key(batch, text_len))
         if entry is None:
             return None
         graph, s_carry, s_enc, s_bufs, s_masks, s_limit = entry
@@ -645,9 +653,14 @@ class Tacotron2Wave:
 
     def tts_batch(self, batch: List[str], speaker_id=0,
                   speed: Optional[float] = None, denoise: float = 0.0,
-                  vowelizer: Optional[str] = None,
-                  postprocess_mel: bool = True, return_mel: bool = False,
-                  pad_to=None, out_int16=False, generator=None):
+                  vowelizer: Optional[str] = None, pitch_mul=None,
+                  pitch_add=None, postprocess_mel: bool = True,
+                  return_mel: bool = False, pad_to=None, out_int16=False,
+                  generator=None):
+        """The batch's waves (and mels with `return_mel`). `pitch_mul` and
+        `pitch_add` are taken and ignored, as the JAX package's Tacotron2
+        does: the model has no pitch input (the FastPitch wrapper's API)."""
+        del pitch_mul, pitch_add
         mels = self.model.ttmel_batch(batch, speaker_id=speaker_id,
                                       speed=speed, vowelizer=vowelizer,
                                       postprocess_mel=postprocess_mel,

@@ -43,7 +43,45 @@ def _ln_t(sd, prefix, p):
     sd[f"{prefix}.bias"] = _np(p["bias"])
 
 
+def _tree_map(fn, *trees):
+    """fn over the leaves of nested dicts of the same structure."""
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def stack_fft_params(tree: dict) -> dict:
+    """Per-layer FFTransformer parameter subtree ({layer_0: .., layer_i:
+    ..}) -> the scan layout ({layers: {block: <leading [n_layer] axis>}}),
+    numpy counterpart of the JAX package's `layers.stack_fft_params`; keys
+    other than the layers (word_emb) are kept."""
+    n = 0
+    while f"layer_{n}" in tree:
+        n += 1
+    layers = [tree[f"layer_{i}"] for i in range(n)]
+    out = {k: v for k, v in tree.items() if not k.startswith("layer_")}
+    out["layers"] = {"block": _tree_map(
+        lambda *xs: np.stack([_np(x) for x in xs]), *layers)}
+    return out
+
+
+def unstack_fft_params(tree: dict) -> dict:
+    """The scan layout -> the per-layer layout (the inverse of
+    `stack_fft_params`)."""
+    stacked = tree["layers"]["block"]
+    leaf = stacked
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    out = {k: v for k, v in tree.items() if k != "layers"}
+    for i in range(_np(leaf).shape[0]):
+        out[f"layer_{i}"] = _tree_map(lambda x, i=i: _np(x)[i], stacked)
+    return out
+
+
 def _fft_stack_t(sd, prefix, stack):
+    """One FFT stack, in either the per-layer or the scan layout."""
+    if "layers" in stack:
+        stack = unstack_fft_params(stack)
     for name, layer in stack.items():
         if name == "word_emb":
             sd[f"{prefix}.word_emb.weight"] = _np(layer["embedding"])

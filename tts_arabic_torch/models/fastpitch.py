@@ -20,6 +20,11 @@ from torch import nn
 
 from .layers import (FFTransformer, TemporalPredictor, conv1d_same, linear)
 
+# LJSpeech's pitch mean and std: what `pitch_transform` is given when a
+# checkpoint stores no corpus statistics (reference model.py:376)
+PITCH_MEAN_FALLBACK = 218.14
+PITCH_STD_FALLBACK = 67.24
+
 
 @dataclasses.dataclass(frozen=True)
 class FastPitchConfig:
@@ -264,11 +269,22 @@ class FastPitch(nn.Module):
 
     def encode_infer(self, tokens: torch.Tensor, *, speaker: int = 0,
                      pitch_mul: float = 1.0, pitch_add: float = 0.0,
-                     max_duration: float = 75.0) -> dict:
+                     pitch_tgt: torch.Tensor | None = None,
+                     energy_tgt: torch.Tensor | None = None,
+                     max_duration: float = 75.0,
+                     pitch_transform=None) -> dict:
         """Text tokens [B, T] -> conditioned encoder state + durations
         (reference `FastPitch.infer` up to the length regulator,
         model.py:351-397). pitch_mul/pitch_add scale and shift the
-        normalized pitch (the wrapper's `pitch_trf`, networks.py:38-42)."""
+        normalized pitch (the wrapper's `pitch_trf`, networks.py:38-42).
+        `pitch_transform(pitch [B, T, 1], enc_lens [B], mean, std) -> pitch`
+        is the general hook (model.py:373-380), given the stored corpus
+        pitch statistics (LJSpeech's 218.14/67.24 when the checkpoint has
+        none, std == 0) and applied before the mul/add. `pitch_tgt` and
+        `energy_tgt` [B, T, 1] replace the predictions in the embeddings;
+        the returned `pitch_pred` stays the predictor's, and with
+        `energy_tgt` no energy is predicted (`energy_pred` None), as in
+        the JAX package."""
         dtype = self.proj.weight.dtype
         spk = self._speaker_vector(tokens.shape[0], speaker, dtype)
         enc_out, enc_mask = self.encoder(tokens, conditioning=spk)
@@ -278,18 +294,28 @@ class FastPitch(nn.Module):
         dur_pred = torch.where(enc_mask, dur_pred, 0.0)
 
         pitch_pred = self.pitch_predictor(enc_out, enc_mask)  # [B, T, 1]
+        if pitch_transform is not None:
+            has_stats = self.pitch_std[0] != 0.0
+            mean = torch.where(has_stats, self.pitch_mean[0],
+                               PITCH_MEAN_FALLBACK)
+            std = torch.where(has_stats, self.pitch_std[0],
+                              PITCH_STD_FALLBACK)
+            pitch_pred = pitch_transform(pitch_pred, enc_mask.sum(dim=1),
+                                         mean, std)
         pitch_pred = pitch_mul * pitch_pred + pitch_add
         # re-mask: a nonzero pitch_add would otherwise leak into real
         # frames through the k=3 pitch_emb conv
         pitch_pred = torch.where(enc_mask[..., None], pitch_pred, 0.0)
-        enc_out = enc_out + conv1d_same(pitch_pred, self.pitch_emb)
+        enc_out = enc_out + conv1d_same(
+            pitch_pred if pitch_tgt is None else pitch_tgt, self.pitch_emb)
 
         energy_pred = None
         if self.config.energy_conditioning:
-            energy_pred = self.energy_predictor(enc_out,
-                                                enc_mask).squeeze(-1)
-            enc_out = enc_out + conv1d_same(energy_pred[..., None],
-                                            self.energy_emb)
+            if energy_tgt is None:
+                energy_pred = self.energy_predictor(enc_out,
+                                                    enc_mask).squeeze(-1)
+                energy_tgt = energy_pred[..., None]
+            enc_out = enc_out + conv1d_same(energy_tgt, self.energy_emb)
         return {
             "enc_out": enc_out,
             "enc_mask": enc_mask,
@@ -316,15 +342,22 @@ class FastPitch(nn.Module):
     def infer(self, tokens: torch.Tensor, *, speaker: int = 0,
               pace: float = 1.0, max_frames: int = 2048,
               pitch_mul: float = 1.0, pitch_add: float = 0.0,
-              max_duration: float = 75.0) -> dict:
-        """Full inference (reference `infer`, model.py:351-409). Returns
-        mel [B, max_frames, n_mel], mel_lens, dur_pred, pitch_pred,
-        energy_pred."""
+              dur_tgt: torch.Tensor | None = None,
+              pitch_tgt: torch.Tensor | None = None,
+              energy_tgt: torch.Tensor | None = None,
+              max_duration: float = 75.0, pitch_transform=None) -> dict:
+        """Full inference (reference `infer`, model.py:351-409); `dur_tgt`
+        [B, T] replaces the predicted durations in the length regulator,
+        the other targets as in `encode_infer`. Returns mel [B, max_frames,
+        n_mel], mel_lens, dur_pred, pitch_pred, energy_pred."""
         enc = self.encode_infer(tokens, speaker=speaker, pitch_mul=pitch_mul,
-                                pitch_add=pitch_add,
-                                max_duration=max_duration)
-        mel, mel_lens = self.decode(enc["enc_out"], enc["dur_pred"],
-                                    max_frames, pace)
+                                pitch_add=pitch_add, pitch_tgt=pitch_tgt,
+                                energy_tgt=energy_tgt,
+                                max_duration=max_duration,
+                                pitch_transform=pitch_transform)
+        mel, mel_lens = self.decode(
+            enc["enc_out"], enc["dur_pred"] if dur_tgt is None else dur_tgt,
+            max_frames, pace)
         return {"mel": mel, "mel_lens": mel_lens,
                 "dur_pred": enc["dur_pred"],
                 "pitch_pred": enc["pitch_pred"],
@@ -334,7 +367,9 @@ class FastPitch(nn.Module):
 
     def forward_train(self, tokens, token_lens, mel_tgt, mel_lens,
                       pitch_dense, energy_dense, attn_prior, attn_hard_dur,
-                      *, gen: torch.Generator | None = None) -> dict:
+                      *, speaker=None, use_gt_pitch: bool = True,
+                      max_duration: float = 75.0,
+                      gen: torch.Generator | None = None) -> dict:
         """Teacher-forced training forward (reference `forward`,
         model.py:273-349), in the JAX package's split: MAS is not in here.
         The caller computes the soft attention with `align_attention`, runs
@@ -344,14 +379,20 @@ class FastPitch(nn.Module):
         mel_tgt [B, T_mel, n_mel] (feature-last); pitch_dense [B, 1, T_mel];
         energy_dense [B, T_mel]; attn_prior [B, T_mel, T_txt]. `gen` draws
         the dropout masks (None: no dropout). Returns a dict of everything
-        the losses need. The pitch and energy embeddings take the targets
-        (teacher forcing), as the reference's training forward does."""
+        the losses need. `speaker` (an int or an int tensor [B]) adds the
+        speaker embedding; the pitch embedding takes the target pitch
+        (teacher forcing, the reference's training forward) unless
+        `use_gt_pitch` is False, the energy embedding always the target."""
         c = self.config
-        enc_out, enc_mask = self.encoder(tokens, gen=gen)
+        spk = (0.0 if speaker is None else
+               self._speaker_vector(tokens.shape[0], speaker,
+                                    self.proj.weight.dtype))
+        enc_out, enc_mask = self.encoder(tokens, conditioning=spk, gen=gen)
 
         log_dur_pred = self.duration_predictor(enc_out, enc_mask,
                                                gen).squeeze(-1)
-        dur_pred = torch.clamp(torch.exp(log_dur_pred) - 1.0, 0.0, 75.0)
+        dur_pred = torch.clamp(torch.exp(log_dur_pred) - 1.0, 0.0,
+                               max_duration)
         pitch_pred = self.pitch_predictor(enc_out, enc_mask,
                                           gen).transpose(1, 2)  # [B, 1, T]
 
@@ -362,8 +403,9 @@ class FastPitch(nn.Module):
 
         dur_tgt = attn_hard_dur.detach()
         pitch_tgt = average_by_durations(pitch_dense, dur_tgt)
-        enc_out = enc_out + conv1d_same(pitch_tgt.transpose(1, 2),
-                                        self.pitch_emb)
+        enc_out = enc_out + conv1d_same(
+            (pitch_tgt if use_gt_pitch else pitch_pred).transpose(1, 2),
+            self.pitch_emb)
 
         energy_pred = energy_tgt = None
         if c.energy_conditioning:

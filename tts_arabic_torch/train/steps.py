@@ -270,9 +270,10 @@ def make_fastpitch_train_step(*, device=None, gan_loss_weight: float = 3.0,
 def make_fastpitch_eval_step(*, device=None):
     """Validation step (reference `validate()`, train.py:19-58): forward
     only, no dropout, no optimizer. Returns eval_step(state, batch) ->
-    meta: the loss terms and the alignment diagnostics, as 0-d tensors.
-    The JAX step also returns the soft attention and mels for figures,
-    which the port does not draw."""
+    (meta, artifacts): the loss terms and the alignment diagnostics, as 0-d
+    tensors, and for the validation figures the soft attention
+    `alignment` [B, T_mel, T_txt], `mel_pred` and `mel_tgt` [B, T_mel,
+    n_mel]."""
     dev = resolve_device(device)
 
     @torch.no_grad()
@@ -290,7 +291,8 @@ def make_fastpitch_eval_step(*, device=None):
         meta["loss"] = loss + kl
         meta.update(alignment_diagnostics(out["attn_soft"], b["mel_lens"],
                                           b["token_lens"]))
-        return meta
+        return meta, {"alignment": out["attn_soft"],
+                      "mel_pred": out["mel_out"], "mel_tgt": b["mel_tgt"]}
 
     return eval_step
 
@@ -341,7 +343,9 @@ def make_tacotron_eval_step(*, device=None):
     """Validation step for Tacotron2: the teacher-forced forward in eval
     (BatchNorm's running statistics, the prenet's masks from a generator
     seeded 0, no other dropout), no optimizer. Returns eval_step(state,
-    batch) -> meta: the loss terms and the alignment diagnostics."""
+    batch) -> (meta, artifacts): the loss terms and the alignment
+    diagnostics, and the alignments [B, T_mel, T_txt] (`alignment`), the
+    postnet mels (`mel_pred`) and the targets (`mel_tgt`)."""
     dev = resolve_device(device)
 
     @torch.no_grad()
@@ -354,6 +358,7 @@ def make_tacotron_eval_step(*, device=None):
         meta["loss"] = loss
         meta.update(alignment_diagnostics(aligns, b["mel_lens"],
                                           b["token_lens"]))
-        return meta
+        return meta, {"alignment": aligns, "mel_pred": mel_post,
+                      "mel_tgt": b["mel_tgt"]}
 
     return eval_step

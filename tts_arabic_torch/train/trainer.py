@@ -2,7 +2,8 @@
 `train/trainer.py`, reference `scripts/train_{fp,fp_adv,tc2,tc2_adv}.py`):
 per-epoch shuffle of the batches, the train step, scalar logging (JSONL,
 and TensorBoard where it imports), checkpoints at the states/backup
-cadence of the config, and per-epoch validation with `val/` scalars.
+cadence of the config, and per-epoch validation with `val/` scalars and
+the first sample's figures.
 
 A checkpoint holds the JAX trainer's keys: `model` and `optim`; with a
 critic also `model_d` and `optim_d`, and `spectral_d` where it keeps
@@ -92,37 +93,52 @@ class Trainer:
             state.step, epoch=epoch, force=force,
             config={"net_config": self.net_config}, **trees)
 
-    def validate(self, val_dataset, collate_fn, eval_fn, step: int) -> dict:
+    def validate(self, val_dataset, collate_fn, eval_fn, step: int,
+                 figures: bool = True) -> dict:
         """Mean `val/` scalars over a validation set, each batch weighted by
-        its size (reference `validate()`, train.py:19-58). `eval_fn(state,
-        batch) -> meta`, see `make_fastpitch_eval_step`, or -> (meta,
-        figures), as `make_hifigan_eval_step` returns it (figures None)."""
+        its size, and with `figures` the first sample's alignment and mels
+        (`MetricLogger.log_alignment_and_mels`; reference `validate()`,
+        train.py:19-58). `eval_fn(state, batch) -> (meta, artifacts)`, see
+        `make_fastpitch_eval_step`; artifacts None (the vocoder's) draw
+        nothing. Figures need matplotlib."""
         sums, n = {}, 0
+        first_artifacts = None
         for b_idx in range(len(val_dataset)):
             batch = collate_fn(val_dataset[b_idx])
             b = int(next(iter(batch.values())).shape[0])
-            meta = eval_fn(self.state, batch)
-            if isinstance(meta, tuple):
-                meta = meta[0]
+            meta, artifacts = eval_fn(self.state, batch)
+            if figures and first_artifacts is None and artifacts is not None:
+                first_artifacts = {k: v[0].float().cpu().numpy()
+                                   for k, v in artifacts.items()}
             for k, v in meta.items():
                 sums[k] = sums.get(k, 0.0) + float(v) * b
             n += b
         means = {k: v / max(n, 1) for k, v in sums.items()}
         self.logger.log_scalars(step, means, prefix="val/")
+        if first_artifacts is not None:
+            a = first_artifacts
+            self.logger.log_alignment_and_mels(
+                step, alignment=a["alignment"].T, mel_pred=a["mel_pred"].T,
+                mel_target=a["mel_tgt"].T)
         print(f"validation @ step {step}: "
               f"loss {means.get('loss', float('nan')):.4f} "
               f"({len(val_dataset)} batches)", flush=True)
         return means
 
-    def fit(self, dataset, collate_fn, epochs: int, log_every: int = 10,
-            val_dataset=None, eval_fn=None,
-            max_steps: Optional[int] = None) -> TrainState:
-        """`dataset` yields whole batches (`DynBatchDataset`). Stops after
-        `epochs` epochs or once `max_steps` updates are taken, validates
-        after each epoch (a cut one included) and ends with a checkpoint of
-        the last state."""
-        epoch, wrote = 0, []
-        for epoch in range(epochs):
+    def fit(self, dataset, collate_fn, epochs: int, start_epoch: int = 0,
+            log_every: int = 10, on_epoch_end: Optional[Callable] = None,
+            val_dataset=None, val_collate_fn=None, eval_fn=None,
+            max_steps: Optional[int] = None,
+            figures: bool = True) -> TrainState:
+        """`dataset` yields whole batches (`DynBatchDataset`). Runs epochs
+        `start_epoch` .. `epochs` - 1 and stops early once `max_steps`
+        updates are taken. After each epoch (a cut one included) it
+        validates, its batches collated by `val_collate_fn` (default
+        `collate_fn`) and with `figures` passed on to `validate`, then
+        calls `on_epoch_end(trainer, epoch)`. Ends with a checkpoint of the
+        last state."""
+        epoch, wrote = start_epoch, []
+        for epoch in range(start_epoch, epochs):
             if max_steps is not None and self.state.step >= max_steps:
                 break
             if hasattr(dataset, "shuffle"):
@@ -143,8 +159,10 @@ class Trainer:
                           f"loss {meta_host['loss']:.4f}", flush=True)
                 wrote = self.save(epoch)
             if val_dataset is not None and eval_fn is not None:
-                self.validate(val_dataset, collate_fn, eval_fn,
-                              self.state.step)
+                self.validate(val_dataset, val_collate_fn or collate_fn,
+                              eval_fn, self.state.step, figures=figures)
+            if on_epoch_end is not None:
+                on_epoch_end(self, epoch)
         if not wrote:   # the last state is not on disk yet
             self.save(epoch, force=True)
         return self.state
