@@ -7,8 +7,10 @@ and the inference CLI), `Tacotron2Wave` (tts(), its decode, stream(),
 the CLI and the server), the int8 path of both pipelines, the Vocos
 vocoder, the adversarial FastPitch recipe, Tacotron2 training (MSE and
 adversarial), HiFi-GAN vocoder training, the AOT serving bundles
-(`torch.export`), the offline apps and a gate-controlled Tacotron2
-(`eval.gate_control`) at full width, and checks what comes out.
+(`torch.export`), the offline apps, a gate-controlled Tacotron2
+(`eval.gate_control`) and the parallel layer (data, sequence and tensor
+parallelism on two ranks that share the card) at full width, and checks
+what comes out.
 
     python3 chip_smoke.py
 
@@ -249,7 +251,9 @@ Phases, one line each (and a table for the kernel checks):
    turns; then the offline apps on a fresh copy of phase 6's corpus:
    `preprocess` audio, text and f0 (against the corpus's true f0),
    `evaluate` on the 3 shortest test utterances (copy-synthesis: MCD and
-   every aligned delta exactly 0; FastPitch and Tacotron2: finite),
+   every aligned delta exactly 0; FastPitch and Tacotron2: finite; the
+   Tacotron2 run's DTW calls on the port's native library timed, and one
+   cosine DTW of 3000 x 200 frames native against numpy: equal paths),
    `export_torch` of phase 7's `states.ckpt` (the same tensors; its `.pth`
    serves the checkpoint's waves exactly), `smoke_test` of both models,
    and `download --verify` with a stub fetcher (one OK, one corrupt FAIL);
@@ -278,6 +282,37 @@ Phases, one line each (and a table for the kernel checks):
    three timed tts() (real-time factor beside phase 12's, frames
    a token) and one under torch.profiler (the ResBlocks' share of the
    device time, the idle share); the phase's seconds
+22. the parallel layer (`tts_arabic_torch.parallel`): PAR_RANKS (2)
+   spawned ranks that share cuda:0 over an explicit gloo backend (NCCL
+   refuses two ranks on one GPU), joined through a FileStore in a temp
+   dir under build/, on a fresh copy of phase 6's corpus: (a) 3 DP
+   FastPitch MSE steps at full width, global batch 10, dropout off, f32
+   TF32 off: before each step rank 0 gives a copy of its parameters the
+   same step in one process (every step's loss terms within 1e-5
+   relative, its gradients within 1e-5 of their norm), the same 3 steps
+   from the initial weights in one process (the parameters after them
+   within PAR_PARAM_TOL of their norm) and a planted fault, the 3 steps on
+   rank 0's half of each batch alone (which must miss by more than
+   PAR_PARAM_TOL); parameters equal on both ranks; each rank's MAS calls
+   bit-equal to the plain MAS on the same soft attention, one MAS launch a
+   rank a step and no ResBlock launch; steps/s of both; (b) one DP
+   Tacotron2 MSE step at full width of 8 rows cut to 192 frames (terms,
+   BatchNorm running statistics and gradients against one process); (c)
+   `sp_vocode` of phase 9's joined mel (the first 13 prompts) through
+   HiFi-GAN V1 in f32 and bf16, one frame shorter (ragged) and through
+   Vocos (overlap 32) against the whole call on the card (f32 within 1e-5
+   of the peak, bf16 SNR > SNR_GATE on every rank), each rank's own
+   generator windows vocoded again with the ResBlocks on the plain version
+   in f32 (SNR of every row > SNR_GATE), each rank's kernel launches (27
+   wide + 3 narrow a window), one halo exchange timed; (d)
+   `FastPitch2Wave(mesh=)` in bf16 on the 16 prompts at batch 8 against
+   one process's tts() (equal lengths, f32 SNR > SNR_GATE, the int16
+   waves within PAR_LSB), each rank's generator calls vocoded again with
+   the plain ResBlocks in f32 (SNR of every row > SNR_GATE), each rank's
+   launches, both rates; (e) `tp_mel_infer_jit` at full width on a 1 x 2
+   (data x model) mesh against the one-device infer (rtol 2e-4, atol
+   2e-5), its all-reduces a call
+   (12); the phase's seconds
 
 Then nvidia-smi's line again, the smoke's seconds, the kernels' JSON
 record (for each ResBlock variant its ms, plain_ms and bound_ms summed
@@ -294,7 +329,11 @@ the Tacotron2 bundle served the 16 prompts; `tacotron2_gate_launches`,
 phase 21's counted tts(), and for the ResBlocks `tacotron2_gate_ms`,
 `tacotron2_gate_plain_ms`, `tacotron2_gate_bound_ms` and
 `tacotron2_gate_max_abs_err` over its generator call's stage shapes, as
-timed in phase 21), and last the result line. Any
+timed in phase 21; `sp_launches_per_rank`, `dp_serving_launches_per_rank`
+and `dp_train_launches_per_rank`, each kernel's launches on each rank, as
+counted around phase 22's bf16 `sp_vocode`, its counted DP tts() and its
+DP training steps), and last
+the result line. Any
 failure raises and the exit code is not 0; without a CUDA device the
 script exits 1 before printing any result.
 """
@@ -306,6 +345,7 @@ import copy
 import json
 import math
 import pathlib
+import queue as queue_mod
 import re
 import subprocess
 import sys
@@ -3772,8 +3812,8 @@ def phase_offline_apps(smi: str, tmp: pathlib.Path,
         raise AssertionError(f"f0 mean {mean:.1f} Hz vs the corpus's "
                              f"{true_mean:.1f}")
 
-    # evaluate scores on the host (a Python DTW of pred x ref frames per
-    # metric), so it takes the 3 shortest test utterances
+    # evaluate scores on the host (a DTW of pred x ref frames per metric),
+    # so it takes the 3 shortest test utterances
     test_lines = (root / "test.txt").read_text().splitlines()
     short = sorted(test_lines, key=lambda line: len(line.split('"')[3]))[:3]
     (root / "short.txt").write_text("\n".join(short) + "\n")
@@ -3791,9 +3831,42 @@ def phase_offline_apps(smi: str, tmp: pathlib.Path,
           labels + ["--checkpoint", str(biased), "--out",
                     str(tmp / "fp.json")])
     fp = _report(tmp / "fp.json")
-    timed("evaluate tacotron2", evaluate.main,
-          labels + ["--model", "tacotron2", "--out", str(tmp / "t2.json")])
+    from tts_arabic_torch.eval import dtw
+    dtw_calls = []
+    native = dtw._dtw_native
+
+    def timed_dtw(A, B, *a):
+        t0 = time.perf_counter()
+        out = native(A, B, *a)
+        dtw_calls.append((A.shape[0], B.shape[0], time.perf_counter() - t0))
+        return out
+
+    with mock.patch.object(dtw, "_dtw_native", timed_dtw):
+        timed("evaluate tacotron2", evaluate.main,
+              labels + ["--model", "tacotron2", "--out",
+                        str(tmp / "t2.json")])
     t2 = _report(tmp / "t2.json")
+    dtw_s = sum(c[-1] for c in dtw_calls)
+    # the native DTW and its plain numpy version at 3000 x 200 frames
+    rng = np.random.default_rng(0)
+    A = rng.normal(-4, 2, (3000, 80)).astype(np.float32)
+    B = rng.normal(-4, 2, (200, 80)).astype(np.float32)
+    t0 = time.perf_counter()
+    cost, path = dtw.dtw_path(A, B)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    plain_cost, plain_path = dtw._dtw_numpy(A, B, 1, -1)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if not (np.array_equal(path, plain_path)
+            and abs(cost - plain_cost) <= 1e-5 * abs(plain_cost)):
+        raise AssertionError("the native DTW differs from numpy's")
+    log(f"[20 dtw] evaluate tacotron2: {len(dtw_calls)} DTW calls on the "
+        f"native library (host C++, `csrc/dtw.cc`), shapes "
+        f"{sorted({c[:2] for c in dtw_calls})}, {dtw_s:.3f} s of the app's "
+        f"{secs['evaluate tacotron2']:.2f} s (with the numpy DTW: 22.9 s "
+        f"for the app) | one cosine DTW of 3000 x 200 frames of 80: native "
+        f"{native_ms:.1f} ms, numpy {plain_ms:.1f} ms, equal paths, costs "
+        f"{cost!r} vs {plain_cost!r} | {smi}")
 
     pth = tmp / "fastpitch_phase7.pth"
     timed("export_torch", export_torch.main,
@@ -4086,6 +4159,618 @@ def phase_gate_control(smi: str, t2_rtf: float) -> dict:
     return launches, timed
 
 
+# ---- the parallel layer: 2 ranks on one card -------------------------------
+
+PAR_RANKS = 2           # ranks of phase 22's world, all on cuda:0
+PAR_STEPS = 3           # DP FastPitch steps of phase 22
+PAR_T2_ROWS = 8         # the DP Tacotron2 step's global batch
+PAR_T2_FRAMES = 192     # its mels cut to this (phase 18's short batch)
+PAR_SP_PROMPTS = 13     # phase 9's long utterance: these prompts joined
+PAR_TIMEOUT = 300.0     # seconds a collective may wait for the other rank
+PAR_TP_FRAMES = 2048    # the TP infer's mel bucket
+PAR_LOSS_TOL = 1e-5     # DP against one process: loss terms, relative
+PAR_GRAD_TOL = 1e-5     # DP against one process: gradients, of their norm
+# 22a: the parameters after PAR_STEPS steps against the same steps in one
+# process, of their norm. AdamW's first step moves an element by about
+# lr * sign(g) whatever |g|, so elements whose gradient is rounding noise
+# (an attention key bias, which the softmax cancels) step apart by 2 lr;
+# they carried most of the 8.6e-6 to 9.4e-6 read on an H100 80GB HBM3 at
+# 700 W (PERF.md section 6). The planted half-batch fault must miss by more.
+PAR_PARAM_TOL = 2e-5
+PAR_SP_TOL = 1e-5       # f32 sp_vocode: max |split - whole| / peak
+# 22d: int16 waves, DP against one process (4 LSB in every run on an H100
+# 80GB HBM3 at 700 W: bf16 decodes of 4 and of 8 rows round apart)
+PAR_LSB = 8
+
+
+def _flat(module, skip=lambda name: False) -> torch.Tensor:
+    return torch.cat([p.detach().reshape(-1).float()
+                      for n, p in module.named_parameters() if not skip(n)])
+
+
+def _flat_grad(module) -> torch.Tensor:
+    return torch.cat([p.grad.reshape(-1).float()
+                      for p in module.parameters() if p.grad is not None])
+
+
+def _synced(fn):
+    """(fn(), seconds): host clock around work synchronized on the card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _launch_counts() -> dict:
+    """Every kernel's launches since the counts were last reset."""
+    from tts_arabic_torch.ops import mas as mas_ops
+    from tts_arabic_torch.ops import resblock as rb
+    return {**rb.LAUNCHES, **mas_ops.LAUNCHES}
+
+
+def _reset_launches() -> None:
+    from tts_arabic_torch.ops import mas as mas_ops
+    from tts_arabic_torch.ops import resblock as rb
+    rb.reset_launches()
+    mas_ops.reset_launches()
+
+
+def _par_fastpitch(rank: int, inp: dict) -> dict:
+    """Case a: PAR_STEPS DP FastPitch MSE steps of the global batches
+    (dropout off), every kernel's launches counted around the DP steps and
+    each MAS call's inputs and output kept. On rank 0 also: before each DP
+    step a copy of its parameters takes the same step in one process (loss
+    terms and gradients at the same point, which AdamW cannot amplify);
+    the same steps from the initial weights in one process; and a planted
+    fault, the steps on rank 0's half of each batch alone."""
+    import dataclasses
+
+    from tts_arabic_torch.align.mas import mas as mas_plain
+    from tts_arabic_torch.models.fastpitch import FastPitch, FastPitchConfig
+    from tts_arabic_torch.models.layers import init_weights
+    from tts_arabic_torch.ops import mas as mas_ops
+    from tts_arabic_torch.parallel import (data_parallel_jit, make_mesh,
+                                           shard_batch)
+    from tts_arabic_torch.train import steps
+    mesh = make_mesh()
+    cfg = FastPitchConfig(**{f.name: 0.0 for f in
+                             dataclasses.fields(FastPitchConfig)
+                             if "drop" in f.name})
+
+    def state_():
+        model = init_weights(FastPitch(cfg), 0).to("cuda")
+        return steps.TrainState(model, steps.make_optimizer(model))
+
+    step = steps.make_fastpitch_train_step(device="cuda")
+    dp_step = data_parallel_jit(step, mesh)
+    fused, mas_calls = mas_ops.mas_fused, []
+
+    def recorded(log_attn, in_lens, out_lens):
+        hard = fused(log_attn, in_lens, out_lens)
+        mas_calls.append((log_attn, in_lens, out_lens, hard))
+        return hard
+
+    state = state_()
+    shadow = state_() if rank == 0 else None
+    launches = collections.Counter()
+    metas, secs, forced = [], [], []
+    for b in inp["fp_batches"]:
+        pre = copy.deepcopy(state.model.state_dict()) if rank == 0 else None
+        _reset_launches()
+        with mock.patch.object(mas_ops, "mas_fused", recorded):
+            meta, t = _synced(lambda: dp_step(state, b, 0))
+        launches.update(_launch_counts())
+        metas.append({k: float(v) for k, v in meta.items()})
+        secs.append(t)
+        if rank == 0:
+            shadow.model.load_state_dict(pre)
+            smeta = {k: float(v) for k, v in step(shadow, b, 0).items()}
+            got, want = _flat_grad(state.model), _flat_grad(shadow.model)
+            rel = {k: abs(metas[-1][k] - v) / max(abs(v), 1e-12)
+                   for k, v in smeta.items()}
+            worst = max(rel, key=rel.get)
+            forced.append(dict(loss=metas[-1]["loss"], single=smeta["loss"],
+                               term=worst, term_err=rel[worst],
+                               grad_err=float((got - want).norm()
+                                              / want.norm())))
+    flat = _flat(state.model)
+    # each rank's MAS calls against the plain MAS on the same soft
+    # attention (counted launches were read above)
+    mas_equal = [torch.equal(hard, mas_plain(la, il, ol))
+                 for la, il, ol, hard in mas_calls]
+    out = dict(metas=metas, secs=secs, launches=dict(launches),
+               mas_equal=mas_equal,
+               mas_shapes=[tuple(c[0].shape) for c in mas_calls],
+               fingerprint=(float(flat.sum()), float(flat.norm())))
+    del mas_calls, shadow
+    if rank == 0:
+        out["forced"] = forced
+        single, fault = state_(), state_()
+        single_secs = []
+        for b in inp["fp_batches"]:
+            single_secs.append(_synced(lambda: step(single, b, 0))[1])
+            step(fault, shard_batch(b, mesh), 0)
+        out["single_secs"] = single_secs
+        ref = _flat(single.model)
+        out["param_err"] = float((flat - ref).norm() / ref.norm())
+        out["fault_err"] = float((_flat(fault.model) - ref).norm()
+                                 / ref.norm())
+    return out
+
+
+def _par_tacotron(rank: int, inp: dict) -> dict:
+    """Case b: one DP Tacotron2 MSE step (dropout off, BatchNorm's
+    statistics over the global batch); on rank 0 the step in one
+    process."""
+    from tts_arabic_torch.models import tacotron2 as t2
+    from tts_arabic_torch.parallel import data_parallel_jit, make_mesh
+    from tts_arabic_torch.train import steps
+    mesh = make_mesh()
+    cfg = t2.Tacotron2Config(prenet_dropout=0.0,
+                             attention_dropout=0.0, decoder_dropout=0.0)
+
+    def state_():
+        model = t2.init_tacotron2(t2.Tacotron2(cfg), 0).to("cuda")
+        return steps.TrainState(model, steps.make_optimizer(
+            model, 1e-3, grad_clip=1.0))
+
+    def stats(model):
+        return {k: v.detach().cpu() for k, v in model.state_dict().items()
+                if "running" in k}
+
+    step = steps.make_tacotron_train_step(device="cuda")
+    with mock.patch.object(t2.Tacotron2, "_dropout",
+                           lambda self, x, rate, gen: x):
+        state = state_()
+        meta, secs = _synced(lambda: data_parallel_jit(step, mesh)(
+            state, inp["t2_batch"], 0))
+        flat = _flat(state.model)
+        out = dict(meta={k: float(v) for k, v in meta.items()}, secs=secs,
+                   fingerprint=(float(flat.sum()), float(flat.norm())))
+        if rank == 0:
+            single = state_()
+            smeta, out["single_secs"] = _synced(
+                lambda: step(single, inp["t2_batch"], 0))
+            out["single_meta"] = {k: float(v) for k, v in smeta.items()}
+            # the gradients after the clip (the parameters follow from them
+            # through the same AdamW step; an element whose gradient is
+            # rounding noise, a conv bias before a training BatchNorm, may
+            # step lr either way, so the parameters are not compared)
+            got, ref = (_flat_grad(m.model) for m in (state, single))
+            out["grad_err"] = float((got - ref).norm() / ref.norm())
+            want = stats(single.model)
+            got = stats(state.model)
+            out["stats_err"] = max(float((got[k] - v).abs().max())
+                                   for k, v in want.items())
+    return out
+
+
+def _row_snrs(calls, forward, dtype) -> list[float]:
+    """Each recorded generator call's (mel, wave) vocoded again by
+    `forward(mel)` with the ResBlocks on the plain version (f32 as is, TF32
+    off; bf16 through `_plain_f32`); the SNR (dB) of every row's wave."""
+    from tts_arabic_torch.ops import resblock as rb
+    from tts_arabic_torch.vocoder import hifigan
+    plain_rb = rb.resblock1_plain if dtype == torch.float32 else _plain_f32
+    snrs = []
+    with torch.no_grad(), mock.patch.object(hifigan, "resblock1", plain_rb):
+        for mel, wave in calls:
+            ref = forward(mel).float().cpu().numpy()
+            got = wave.float().cpu().numpy()
+            snrs += [snr_db(r, g) for r, g in zip(ref, got)]
+    return snrs
+
+
+def _par_sp(rank: int, inp: dict) -> dict:
+    """Case c: sp_vocode of the joined mel through HiFi-GAN V1 in f32 and
+    bf16 (and one frame shorter: ragged), and through Vocos (overlap 32),
+    each against the whole call on this rank's card; every kernel's
+    launches counted around each split call; this rank's own generator
+    windows (HiFi-GAN) vocoded again on the plain ResBlocks; the halo
+    exchange timed alone."""
+    from tts_arabic_torch.models.layers import init_weights
+    from tts_arabic_torch.parallel import make_mesh, sp_vocode
+    from tts_arabic_torch.parallel.sp import _exchange
+    from tts_arabic_torch.vocoder.hifigan import Generator, HiFiGANConfig
+    from tts_arabic_torch.vocoder.vocos import (CONFIG_22K, MelVocosModule,
+                                                init_vocos)
+    mesh = make_mesh()
+    gen = init_weights(Generator(HiFiGANConfig()), 1).to("cuda").eval()
+    vocos = init_vocos(MelVocosModule(**{
+        k: v for k, v in CONFIG_22K.items() if k != "sample_rate"}),
+        1).to("cuda").eval()
+    mel = torch.from_numpy(inp["sp_mel"]).to("cuda")
+    out = {}
+    with torch.no_grad():
+        for label, fn, x, kw in (
+                ("f32", gen, mel, {}),
+                ("bf16", gen, mel.to(torch.bfloat16), {}),
+                ("ragged f32", gen, mel[:, :-1], {}),
+                ("vocos f32", vocos, mel, dict(overlap=32))):
+            calls = []
+
+            def recording(win, fn=fn, calls=calls):
+                wave = fn(win)
+                calls.append((win, wave))
+                return wave
+
+            _reset_launches()
+            got, secs = _synced(lambda: sp_vocode(recording, x, mesh, **kw))
+            launches = _launch_counts()
+            whole = fn(x).float().cpu().numpy()
+            got = got.float().cpu().numpy()
+            out[label] = dict(
+                frames=int(x.shape[1]), launches=launches, secs=secs,
+                windows=[tuple(w.shape) for w, _ in calls],
+                shape_ok=got.shape == whole.shape,
+                err=float(np.abs(got - whole).max()
+                          / np.abs(whole).max()),
+                snr=snr_db(whole, got),
+                plain_snrs=(_row_snrs(calls, gen, x.dtype) if fn is gen
+                            else None))
+            del calls
+        halo = mel[:, :32].contiguous()
+        _exchange(halo, halo, mesh, "data")
+        _, secs = _synced(lambda: [_exchange(halo, halo, mesh, "data")
+                                   for _ in range(20)])
+        out["halo_ms"] = secs / 20 * 1e3
+        out["halo_bytes"] = halo.numel() * halo.element_size()
+    return out
+
+
+def _par_serving(rank: int, inp: dict) -> dict:
+    """Case d: FastPitch2Wave(mesh=) in bf16 on the prompts at batch 8,
+    every kernel's launches counted around the counted call and this
+    rank's generator calls kept and vocoded again on the plain ResBlocks;
+    on rank 0 the one-process tts(): the f32 waves' SNR, the int16 waves'
+    largest difference."""
+    from tts_arabic_torch.infer import FastPitch2Wave
+    from tts_arabic_torch.parallel import make_mesh
+    from tts_arabic_torch.vocoder.hifigan import Generator
+    mesh = make_mesh()
+
+    def pipe_(mesh):
+        pipe = FastPitch2Wave(seed=0, arabic_in=False, mesh=mesh,
+                              compute_dtype=torch.bfloat16,
+                              device="cuda")
+        with torch.no_grad():
+            pipe.model.model.duration_predictor.fc.bias.add_(2.0)
+        return pipe
+
+    prompts = inp["prompts"]
+    dp = pipe_(mesh)
+    dp.tts(prompts, batch_size=BATCH)                       # warm
+    forward, calls = Generator.forward, []
+
+    def recording(self, mel, **kw):
+        wave = forward(self, mel, **kw)
+        calls.append((mel, wave))
+        return wave
+
+    _reset_launches()
+    with mock.patch.object(Generator, "forward", recording):
+        waves, secs = _synced(lambda: dp.tts(prompts, batch_size=BATCH))
+    out = dict(launches=_launch_counts(), secs=secs,
+               lens=[len(w) for w in waves],
+               calls=[tuple(m.shape) for m, _ in calls],
+               plain_snrs=_row_snrs(calls, dp.vocoder, torch.bfloat16))
+    del calls
+    codes = dp.tts(prompts, batch_size=BATCH, out_int16=True)
+    if rank == 0:
+        single = pipe_(None)
+        single.tts(prompts, batch_size=BATCH)
+        ref, out["single_secs"] = _synced(lambda: single.tts(
+            prompts, batch_size=BATCH))
+        out["single_lens"] = [len(w) for w in ref]
+        out["snr"] = min(snr_db(b, a) for a, b in zip(waves, ref))
+        ref = single.tts(prompts, batch_size=BATCH, out_int16=True)
+        out["lsb"] = max(int(np.abs(a.astype(np.int32) - b).max())
+                         for a, b in zip(codes, ref))
+        out["seconds_of_audio"] = sum(len(w) for w in ref) / SAMPLE_RATE
+    return out
+
+
+def _par_tp(rank: int, inp: dict) -> dict:
+    """Case e: tp_mel_infer_jit on a 1 x 2 (data x model) mesh at full
+    width against the one-device infer (f32, TF32 off); the counted
+    all-reduces a call."""
+    from tts_arabic_torch.models.fastpitch import FastPitch, FastPitchConfig
+    from tts_arabic_torch.models.layers import init_weights
+    from tts_arabic_torch.parallel import make_mesh_dp_tp, tp_mel_infer_jit
+    mesh = make_mesh_dp_tp(1, PAR_RANKS)
+    model = init_weights(FastPitch(FastPitchConfig()), 0)
+    with torch.no_grad():
+        model.duration_predictor.fc.bias.add_(2.0)
+    model = model.to("cuda").eval()
+    tokens = torch.from_numpy(inp["tp_tokens"]).to("cuda")
+    fn, sharded = tp_mel_infer_jit(model, mesh, max_frames=PAR_TP_FRAMES)
+    fn(sharded, tokens)                                     # warm
+    sharded.collectives.clear()
+    (mel, lens), secs = _synced(lambda: fn(sharded, tokens))
+    calls = list(sharded.collectives)
+    with torch.no_grad():
+        ref, single_secs = _synced(lambda: model.infer(
+            tokens, max_frames=PAR_TP_FRAMES))
+    mel, want = mel.cpu().numpy(), ref["mel"].cpu().numpy()
+    conv1 = sharded.encoder.layers[0].pos_ff.conv1.weight
+    return dict(all_reduces=sum(op == "all_reduce" for op, _ in calls),
+                reduced_widths=sorted({s[-1] for op, s in calls
+                                       if op == "all_reduce"}),
+                hidden=int(conv1.shape[0]), secs=secs,
+                single_secs=single_secs,
+                lens_equal=bool(torch.equal(lens.cpu(),
+                                            ref["mel_lens"].cpu())),
+                err=float(np.abs(mel - want).max()),
+                within=bool(np.allclose(mel, want, rtol=2e-4, atol=2e-5)))
+
+
+# the kernels line's per-rank keys and the paths they are counted on
+PAR_PATHS = (("sp", "sp"), ("dp_serving", "serving"), ("dp_train", "train"))
+PAR_CASES = (("a", _par_fastpitch), ("b", _par_tacotron), ("c", _par_sp),
+             ("d", _par_serving), ("e", _par_tp))
+
+
+def _par_rank(rank: int, world: int, store: str, inputs: str, queue) -> None:
+    """One rank of phase 22 (spawned): joins the gloo group through the
+    FileStore `store`, runs PAR_CASES in order, puts (rank, results) or
+    (rank, traceback) on `queue`."""
+    import pickle
+    import traceback
+
+    import torch.distributed as dist
+    try:
+        with open(inputs, "rb") as f:
+            inp = pickle.load(f)
+        sys.path.insert(0, str(ROOT))
+        from tts_arabic_torch.parallel import init_multiprocess
+        torch.cuda.set_device(0)
+        set_tf32(False)
+        # gloo, chosen here: NCCL refuses two ranks on one GPU
+        init_multiprocess(f"file://{store}", world, rank, "gloo",
+                          timeout=PAR_TIMEOUT)
+        out = {}
+        for name, case in PAR_CASES:
+            out[name], out[f"{name} s"] = _synced(lambda: case(rank, inp))
+        queue.put((rank, out))
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        queue.put((rank, traceback.format_exc()))
+
+
+def par_inputs(root: pathlib.Path, prompts: list[str]) -> dict:
+    """Phase 22's inputs: the synthetic corpus's first PAR_STEPS training
+    batches (batch 10) and a Tacotron2 batch of its PAR_T2_ROWS shortest
+    utterances cut to PAR_T2_FRAMES frames, phase 9's joined mel (phase
+    4's bf16 pipeline's), the prompts and their tokens."""
+    from tts_arabic_torch.data import ArabDataset, collate_tacotron
+    from tts_arabic_torch.runtime.config import get_config
+    config = write_corpus(root / "corpus")
+    train, _ = training_batches(config)
+    cfg = get_config(config)
+    ds = ArabDataset(cfg.train_labels, cfg.train_wavs_path,
+                     label_pattern=cfg.label_pattern)
+    items = sorted((ds[i] for i in range(len(ds))),
+                   key=lambda it: it[1].shape[1])[:PAR_T2_ROWS]
+    t2_batch = collate_tacotron([(t, m[:, :PAR_T2_FRAMES]) for t, m in items])
+    pipe = make_pipe(torch.bfloat16)
+    mel = pipe.model.ttmel(" ".join(prompts[:PAR_SP_PROMPTS]))
+    ids = [pipe.model.tokenize(t) for t in prompts[:BATCH]]
+    tokens = np.zeros((BATCH, -(-max(map(len, ids)) // 16) * 16), np.int64)
+    for i, x in enumerate(ids):
+        tokens[i, : len(x)] = x
+    del pipe
+    return dict(fp_batches=train[:PAR_STEPS], t2_batch=t2_batch,
+                sp_mel=np.ascontiguousarray(mel.T[None]), prompts=prompts,
+                tp_tokens=tokens)
+
+
+def run_ranks(inp: dict, tmp: pathlib.Path) -> dict:
+    """Spawns PAR_RANKS ranks of `_par_rank` on `inp`, waits for them, and
+    stops every one; -> {rank: results}."""
+    import pickle
+    path = tmp / "inputs.pkl"
+    path.write_bytes(pickle.dumps(inp))
+    ctx = torch.multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_par_rank,
+                         args=(r, PAR_RANKS, str(tmp / "store"), str(path),
+                               queue)) for r in range(PAR_RANKS)]
+    for p in procs:
+        p.start()
+    ranks = {}
+    deadline = time.perf_counter() + 2 * PAR_TIMEOUT
+    try:
+        while len(ranks) < PAR_RANKS:
+            try:
+                rank, out = queue.get(timeout=5)
+            except queue_mod.Empty:
+                dead = [p.exitcode for p in procs if p.exitcode not in
+                        (None, 0)]
+                if dead or time.perf_counter() > deadline:
+                    raise AssertionError(f"phase 22: ranks exited {dead} "
+                                         "without a result") from None
+                continue
+            if isinstance(out, str):
+                raise AssertionError(f"phase 22: rank {rank} failed:\n{out}")
+            ranks[rank] = out
+        for p in procs:
+            p.join(timeout=60)
+            if p.exitcode != 0:
+                raise AssertionError(f"phase 22: a rank exited "
+                                     f"{p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return ranks
+
+
+def _rel(got: dict, want: dict) -> float:
+    return max(abs(got[k] - v) / max(abs(v), 1e-12) for k, v in want.items()
+               if k != "grad_norm")
+
+
+def phase_parallel(smi: str, prompts: list[str]) -> dict:
+    """Phase 22 (see the module docstring): the parallel layer on
+    PAR_RANKS ranks sharing cuda:0 over gloo. -> per-rank launches."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="smoke_parallel_",
+                                     dir=ROOT / "build") as tmp:
+        tmp = pathlib.Path(tmp)
+        inp = par_inputs(tmp, prompts)
+        t_in = time.perf_counter() - t0
+        ranks = run_ranks(inp, tmp)
+    r0 = ranks[0]
+    every = range(PAR_RANKS)
+    for case in ("a", "b"):
+        prints = {ranks[r][case]["fingerprint"] for r in every}
+        if len(prints) != 1:
+            raise AssertionError(f"22{case}: the ranks' parameters differ: "
+                                 f"{prints}")
+
+    a = r0["a"]
+    forced = a["forced"]
+    term_err = max(f["term_err"] for f in forced)
+    grad_errs = [f["grad_err"] for f in forced]
+    grad_err = max(grad_errs)
+    train = [ranks[r]["a"]["launches"] for r in every]
+    mas_equal = [all(ranks[r]["a"]["mas_equal"]) for r in every]
+    mas_calls = [len(ranks[r]["a"]["mas_equal"]) for r in every]
+    rate = (PAR_STEPS - 1) / sum(a["secs"][1:])
+    single_rate = (PAR_STEPS - 1) / sum(a["single_secs"][1:])
+    log(f"[22a parallel] DP FastPitch MSE at full width, {PAR_RANKS} ranks "
+        f"on cuda:0 over gloo, {PAR_STEPS} steps of global batch "
+        f"{len(inp['fp_batches'][0]['tokens'])} "
+        f"({tuple(inp['fp_batches'][0]['mel_tgt'].shape)}), dropout off, "
+        f"f32 TF32 off: each step against the same step in one process from "
+        f"the same parameters: losses {[f['loss'] for f in forced]} vs "
+        f"{[f['single'] for f in forced]}, every term (grad_norm too) within "
+        f"{term_err:.2e} relative (<= {PAR_LOSS_TOL:.0e}; the worst per step "
+        f"{[f['term'] for f in forced]}), gradients "
+        f"{[float(f'{g:.3g}') for g in grad_errs]} of "
+        f"their norm (<= {PAR_GRAD_TOL:.0e}) | the {PAR_STEPS} steps from "
+        f"the initial weights: parameters {a['param_err']:.3e} of their norm "
+        f"from one process's (<= {PAR_PARAM_TOL:.0e}), equal on both ranks; "
+        f"the planted fault (rank 0's half of each batch alone) "
+        f"{a['fault_err']:.3e} (> {PAR_PARAM_TOL:.0e}) | MAS calls per rank "
+        f"{mas_calls} at {ranks[0]['a']['mas_shapes']} (rank 0), bit-equal "
+        f"to the plain MAS on the same soft attention {mas_equal} | "
+        f"launches per rank {train} | {rate:.2f} steps/s (steps "
+        f"2-{PAR_STEPS}) against one process's {single_rate:.2f} on the same "
+        f"card | {smi}")
+    want = {"resblock1_wide": 0, "resblock1_narrow": 0, "mas": PAR_STEPS}
+    if (term_err > PAR_LOSS_TOL or grad_err > PAR_GRAD_TOL
+            or a["param_err"] > PAR_PARAM_TOL
+            or not a["fault_err"] > PAR_PARAM_TOL
+            or not all(mas_equal) or mas_calls != [PAR_STEPS] * PAR_RANKS
+            or any(t != want for t in train)):
+        raise AssertionError("22a: DP FastPitch differs from one process")
+
+    b = r0["b"]
+    loss_err = _rel(b["meta"], b["single_meta"])
+    log(f"[22b parallel] DP Tacotron2 MSE at full width, one step of "
+        f"global batch {PAR_T2_ROWS} ({PAR_T2_ROWS // PAR_RANKS} a rank, "
+        f"{tuple(inp['t2_batch']['mel_tgt'].shape)}), dropout off: loss "
+        f"{b['meta']['loss']!r} vs {b['single_meta']['loss']!r}, terms "
+        f"{loss_err:.2e} (<= {PAR_LOSS_TOL:.0e}) | BatchNorm running "
+        f"statistics {b['stats_err']:.2e} (<= {PAR_GRAD_TOL:.0e}) | "
+        f"gradients after the clip {b['grad_err']:.2e} of their norm (<= "
+        f"{PAR_GRAD_TOL:.0e}) | step {b['secs']:.3f} s vs one process "
+        f"{b['single_secs']:.3f} s | {smi}")
+    if (loss_err > PAR_LOSS_TOL or b["stats_err"] > PAR_GRAD_TOL
+            or b["grad_err"] > PAR_GRAD_TOL):
+        raise AssertionError("22b: DP Tacotron2 differs from one process")
+
+    for label in ("f32", "bf16", "ragged f32", "vocos f32"):
+        got = [ranks[r]["c"][label] for r in every]
+        dtype = torch.bfloat16 if label == "bf16" else torch.float32
+        ok = all(g["shape_ok"] for g in got) and (
+            min(g["snr"] for g in got) > SNR_GATE[dtype]
+            if label == "bf16" else max(g["err"] for g in got) <= PAR_SP_TOL)
+        errs = ", ".join(f"{g['err']:.2e}" for g in got)
+        text = (f"[22c parallel] sp_vocode {label} of phase 9's joined mel "
+                f"({got[0]['frames']} frames, {PAR_SP_PROMPTS} prompts) over "
+                f"{PAR_RANKS} ranks against the whole call on the card: "
+                f"max |split - whole| / peak per rank [{errs}] (<= "
+                f"{PAR_SP_TOL:.0e} in f32), SNR "
+                f"{[round(g['snr'], 2) for g in got]} dB | windows per rank "
+                f"{[g['windows'] for g in got]} | launches per rank "
+                f"{[g['launches'] for g in got]}")
+        if got[0]["plain_snrs"] is not None:
+            lows = [min(g["plain_snrs"]) for g in got]
+            want = [{"resblock1_wide": 27 * len(g["windows"]),
+                     "resblock1_narrow": 3 * len(g["windows"]), "mas": 0}
+                    for g in got]
+            ok = ok and min(lows) > SNR_GATE[dtype] and [
+                g["launches"] for g in got] == want
+            text += (f" (27 wide + 3 narrow a window) | each rank's windows "
+                     f"on the plain ResBlocks in f32, min SNR of a row per "
+                     f"rank {[round(x, 2) for x in lows]} dB (> "
+                     f"{SNR_GATE[dtype]})")
+        log(text + f" | {[round(g['secs'] * 1e3, 2) for g in got]} ms | "
+            f"{smi}")
+        if not ok:
+            raise AssertionError(f"22c: sp_vocode {label} differs")
+    log(f"[22c parallel] one halo exchange ({r0['c']['halo_bytes']} B each "
+        f"way, staged through host memory for gloo): "
+        f"{r0['c']['halo_ms']:.3f} ms | {smi}")
+
+    d = r0["d"]
+    lens = [ranks[r]["d"]["lens"] for r in every]
+    serving = [ranks[r]["d"]["launches"] for r in every]
+    lows = [min(ranks[r]["d"]["plain_snrs"]) for r in every]
+    want = [{"resblock1_wide": 27 * len(ranks[r]["d"]["calls"]),
+             "resblock1_narrow": 3 * len(ranks[r]["d"]["calls"]), "mas": 0}
+            for r in every]
+    log(f"[22d parallel] FastPitch2Wave(mesh=) bf16, the {len(prompts)} "
+        f"prompts at batch {BATCH}: lengths equal to one process's "
+        f"{all(x == d['single_lens'] for x in lens)}, min SNR of the f32 "
+        f"waves {d['snr']:.2f} dB (> {SNR_GATE[torch.bfloat16]}), max "
+        f"difference of the int16 waves {d['lsb']} LSB (<= {PAR_LSB}) | "
+        f"generator calls per rank "
+        f"{[ranks[r]['d']['calls'] for r in every]}, on the plain ResBlocks "
+        f"in f32 min SNR of a row per rank {[round(x, 2) for x in lows]} dB "
+        f"(> {SNR_GATE[torch.bfloat16]}) | launches per rank {serving} (27 "
+        f"wide + 3 narrow a call) | "
+        f"{d['seconds_of_audio'] / d['secs']:.1f}x real time vs one "
+        f"process's {d['seconds_of_audio'] / d['single_secs']:.1f}x | {smi}")
+    if (any(x != d["single_lens"] for x in lens)
+            or not d["snr"] > SNR_GATE[torch.bfloat16]
+            or d["lsb"] > PAR_LSB
+            or not min(lows) > SNR_GATE[torch.bfloat16]
+            or serving != want):
+        raise AssertionError("22d: DP serving differs from one process")
+
+    e = [ranks[r]["e"] for r in every]
+    n_ffn = 12                          # 6 encoder + 6 decoder FFT blocks
+    errs = ", ".join(f"{x['err']:.2e}" for x in e)
+    log(f"[22e parallel] tp_mel_infer_jit at full width on a 1 x "
+        f"{PAR_RANKS} mesh (d_inner split {PAR_RANKS} x {e[0]['hidden']}), "
+        f"f32 TF32 off, {BATCH} prompts, bucket {PAR_TP_FRAMES}: lengths "
+        f"equal {[x['lens_equal'] for x in e]}, max |mel - single| "
+        f"[{errs}] "
+        f"(rtol 2e-4, atol 2e-5: {[x['within'] for x in e]}) | all-reduces "
+        f"a call {[x['all_reduces'] for x in e]} (expected {n_ffn}, "
+        f"of width {e[0]['reduced_widths']}) | {e[0]['secs'] * 1e3:.1f} ms "
+        f"vs one device {e[0]['single_secs'] * 1e3:.1f} ms | {smi}")
+    if not all(x["lens_equal"] and x["within"]
+               and n_ffn <= x["all_reduces"] <= n_ffn + 1 for x in e):
+        raise AssertionError("22e: TP infer differs")
+    secs = time.perf_counter() - t0
+    log(f"[22 parallel] the phase: {secs:.1f} s (inputs {t_in:.1f} s; "
+        f"the ranks' cases " + ", ".join(
+            f"{c} {r0[f'{c} s']:.1f}" for c, _ in PAR_CASES) + f" s) | {smi}")
+    kernels = ("resblock1_wide", "resblock1_narrow", "mas")
+    return {path: {k: [counts[r][k] for r in every] for k in kernels}
+            for path, counts in (
+                ("train", train),
+                ("sp", [ranks[r]["c"]["bf16"]["launches"] for r in every]),
+                ("serving", serving))}
+
+
 def main() -> int:
     global T_START
     T_START = time.perf_counter()
@@ -4166,6 +4851,7 @@ def main() -> int:
         f"{t2_bundle['export_s']:.1f} s; the apps "
         f"{time.perf_counter() - t1:.1f} s)")
     gate_launches, gate_timed = phase_gate_control(smi, t2_rtf)
+    par = phase_parallel(smi, prompts)
     replaces = {
         "resblock1_wide": "tts_arabic_tpu/ops/hifigan_pallas.py:153",
         "resblock1_narrow": "tts_arabic_tpu/ops/hifigan_pallas.py:547",
@@ -4197,7 +4883,12 @@ def main() -> int:
             # stage shapes of its generator call
             "tacotron2_gate_launches": gate_launches[kname],
             **{f"tacotron2_gate_{k}": v
-               for k, v in gate_timed[kname].items()}})
+               for k, v in gate_timed[kname].items()},
+            # phase 22: each rank's launches counted around its bf16
+            # sp_vocode call, its counted FastPitch2Wave(mesh=).tts() and
+            # its DP training steps
+            **{f"{path}_launches_per_rank": par[key][kname]
+               for path, key in PAR_PATHS}})
     # one MAS launch per training step and validation batch, each timed at
     # its own batch's shape in phase 6
     kernels.append({
@@ -4212,7 +4903,10 @@ def main() -> int:
         "int8_launches": 0, "adversarial_launches": adv["launches"],
         "adversarial_ms": adv["mas_ms"], "vocoder_train_launches": 0,
         "bundle_launches": 0, "tacotron2_bundle_launches": 0,
-        "tacotron2_gate_launches": 0})
+        "tacotron2_gate_launches": 0,
+        # phase 22: each rank's launches, as above
+        **{f"{path}_launches_per_rank": par[key]["mas"]
+           for path, key in PAR_PATHS}})
     log(smi)
     log(f"[smoke] every phase passed in {time.perf_counter() - T_START:.1f} "
         "s")

@@ -55,9 +55,10 @@ def test_dtw_equals_jax_numpy_recurrence(metric, window):
     cost_ref, path_ref = jax_dtw._dtw_numpy(A, B, mcode, window)
     cost, path = port_eval.dtw_path(A, B, metric=metric,
                                     window=None if window < 0 else window)
-    assert cost == cost_ref
+    # the port's native recurrence sums in index order, numpy pairwise
+    assert cost == pytest.approx(cost_ref, rel=1e-5)
     np.testing.assert_array_equal(path, path_ref)
-    assert not port_eval.using_native_kernel()
+    assert port_eval.using_native_kernel()
 
 
 def test_dtw_align_mels_equals_jax():
@@ -66,14 +67,14 @@ def test_dtw_align_mels_equals_jax():
     A = np.ascontiguousarray(mel_a.T)
     B = np.ascontiguousarray(mel_b.T)
     cost, path = jax_dtw._dtw_numpy(A, B, 1, -1)
-    assert got[0] == cost
+    assert got[0] == pytest.approx(cost, rel=1e-5)
     np.testing.assert_array_equal(got[1], path)
     np.testing.assert_array_equal(got[2], A[path[:, 0]])
     np.testing.assert_array_equal(got[3], B[path[:, 1]])
     same = port_eval.dtw_align_mels(mel_a, mel_a)
     np.testing.assert_array_equal(same[1][:, 0], same[1][:, 1])
     assert port_eval.dtw_align_mels(mel_a, mel_b, return_aligned=False)[
-        0] == cost
+        0] == got[0]
 
 
 def test_oversmoothing_metrics_and_mcd_equal_jax():

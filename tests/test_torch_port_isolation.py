@@ -42,8 +42,8 @@ def test_module_walk_reaches_every_sub_package():
     names = {m.name for m in pkgutil.walk_packages(
         tts_arabic_torch.__path__, "tts_arabic_torch.")}
     for sub in ("align", "apps", "audio", "data", "diacritizers", "eval",
-                "infer", "models", "ops", "runtime", "text", "train",
-                "vocoder"):
+                "infer", "models", "ops", "parallel", "runtime", "text",
+                "train", "vocoder"):
         assert f"tts_arabic_torch.{sub}" in names, sub
     for mod in ("align.mas", "align.prior", "apps.html_report",
                 "apps.inference", "apps.server", "apps.train_fastpitch",
@@ -55,7 +55,8 @@ def test_module_walk_reaches_every_sub_package():
                 "eval.gate_control",
                 "eval.oversmoothing", "eval.plotting", "infer.longform",
                 "infer.tacotron_pipeline", "models.tacotron2", "ops.ctc",
-                "ops.mas", "runtime.checkpoint", "runtime.config",
+                "ops.mas", "parallel.mesh", "parallel.sp", "parallel.tp",
+                "runtime.checkpoint", "runtime.config",
                 "runtime.logging", "runtime.profiling", "train.losses",
                 "train.steps", "train.trainer", "train.vocoder",
                 "vocoder.discriminators"):
@@ -73,6 +74,30 @@ def test_gate_control_cache_stays_in_the_checkout(monkeypatch, tmp_path):
     assert gate_control._cache_dir() == PORT.parent / "build" / "gate_cache"
     monkeypatch.setenv("TTS_ARABIC_TORCH_GATE_CACHE", str(tmp_path))
     assert gate_control._cache_dir() == tmp_path
+
+
+def test_parallel_layer_and_dtw_loader_stay_inside_the_port():
+    """`parallel/` and the DTW loader import no JAX and nothing of the JAX
+    package (the walk above imports them in a fresh process; here their
+    sources are read), and the DTW library is the port's own: built from
+    `csrc/dtw.cc` into `build/`, with no path into the JAX package's
+    `native/`."""
+    from tts_arabic_torch.eval import dtw
+    from tts_arabic_torch.ops import build
+    assert dtw.using_native_kernel()
+    lib = pathlib.Path(build.host_library("dtw")._name).resolve()
+    assert lib.parent == (PORT.parent / "build").resolve(), lib
+    assert lib.name.startswith("libdtw_")
+    assert (PORT / "csrc" / "dtw.cc").is_file()
+    for src in [PORT / "eval" / "dtw.py", PORT / "ops" / "build.py",
+                *sorted((PORT / "parallel").glob("*.py"))]:
+        text = src.read_text()
+        assert "native/" not in text and "libdtw.so" not in text, src
+        for node in ast.walk(ast.parse(text, str(src))):
+            if isinstance(node, ast.Import):
+                assert not any(_forbidden(a.name) for a in node.names), src
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                assert not _forbidden(node.module or ""), src
 
 
 def test_no_source_file_imports_jax_or_the_jax_package():

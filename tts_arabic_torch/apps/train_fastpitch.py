@@ -12,6 +12,12 @@ seeded random weights, or from `restore_model` when the config names one.
 config's `d_lr`/`d_beta1`/`d_beta2`, the loss weights `gan_loss_weight`
 and `feat_loss_weight`). Per-epoch validation runs on `test_labels` when
 the config gives them.
+
+Data parallelism: under `torchrun --nproc-per-node N` the ranks form a
+1-D mesh (`parallel.torchrun_mesh`; `--no-mesh` keeps one process's run)
+and each step's batch is split over them (`Trainer(mesh=)`):
+
+    torchrun --nproc-per-node 4 -m tts_arabic_torch.apps.train_fastpitch --config configs/nawar_fp.yaml
 """
 from __future__ import annotations
 
@@ -20,8 +26,8 @@ import argparse
 from ..data import ArabDatasetFastPitch, DynBatchDataset, collate_fastpitch
 from ..models.fastpitch import FastPitch, FastPitchConfig
 from ..models.layers import init_weights
+from ..parallel.mesh import torchrun_mesh
 from ..runtime.config import get_config
-from ..runtime.device import resolve_device
 from ..train.steps import (TrainState, add_critic, make_fastpitch_eval_step,
                            make_fastpitch_train_step, make_optimizer)
 from ..train.trainer import Trainer
@@ -46,9 +52,18 @@ def main(argv=None) -> Trainer:
     parser.add_argument("--no-figures", action="store_true",
                         help="validate without the alignment and mel "
                              "figures (they need matplotlib)")
-    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--device", default=None,
+                        help="cuda (default), cpu, or cuda:<i>; under "
+                             "torchrun cuda:$LOCAL_RANK by default")
+    parser.add_argument("--no-mesh", action="store_true",
+                        help="one process even under torchrun")
+    parser.add_argument("--dist-backend", default=None,
+                        help="torch.distributed backend under torchrun: "
+                             "nccl (default on cards) or gloo (default on "
+                             "the CPU; several ranks on one card)")
     args = parser.parse_args(argv)
-    device = resolve_device(args.device)
+    mesh, device = torchrun_mesh(args.device, args.dist_backend,
+                                 not args.no_mesh)
     config = get_config(args.config)
 
     f0_path = (config.get_path("f0_dict_path")
@@ -81,7 +96,7 @@ def main(argv=None) -> Trainer:
         n_save_states_iter=config.n_save_states_iter,
         n_save_backup_iter=config.n_save_backup_iter,
         seed=seed, net_config=model_config.to_reference_net_config(),
-        device=device)
+        device=device, mesh=mesh)
     if config.get("restore_model"):
         trainer.restore(config.get_path("restore_model"))
 

@@ -15,6 +15,12 @@ draws each epoch's order from `sampler_weights_file`. The gradients are
 clipped at `grad_clip_thresh`. `--adv` adds the critic, as
 `train_fastpitch --adv` does, reading the postnet mel. Per-epoch
 validation runs on `test_labels` when the config gives them.
+
+Data parallelism: under `torchrun --nproc-per-node N` the ranks form a
+1-D mesh (`parallel.torchrun_mesh`; `--no-mesh` keeps one process's run)
+and each batch is split over them (`Trainer(mesh=)`), BatchNorm's
+statistics taken over the whole batch. A batch (a truncated one too) must
+divide by N.
 """
 from __future__ import annotations
 
@@ -25,8 +31,8 @@ import numpy as np
 
 from ..data import ArabDataset, WeightedSampler, collate_tacotron
 from ..models.tacotron2 import Tacotron2, Tacotron2Config, init_tacotron2
+from ..parallel.mesh import torchrun_mesh
 from ..runtime.config import get_config
-from ..runtime.device import resolve_device
 from ..train.steps import (TrainState, add_critic, make_optimizer,
                            make_tacotron_eval_step, make_tacotron_train_step)
 from ..train.trainer import Trainer
@@ -84,9 +90,18 @@ def main(argv=None) -> Trainer:
     parser.add_argument("--no-figures", action="store_true",
                         help="validate without the alignment and mel "
                              "figures (they need matplotlib)")
-    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--device", default=None,
+                        help="cuda (default), cpu, or cuda:<i>; under "
+                             "torchrun cuda:$LOCAL_RANK by default")
+    parser.add_argument("--no-mesh", action="store_true",
+                        help="one process even under torchrun")
+    parser.add_argument("--dist-backend", default=None,
+                        help="torch.distributed backend under torchrun: "
+                             "nccl (default on cards) or gloo (default on "
+                             "the CPU; several ranks on one card)")
     args = parser.parse_args(argv)
-    device = resolve_device(args.device)
+    mesh, device = torchrun_mesh(args.device, args.dist_backend,
+                                 not args.no_mesh)
     config = get_config(args.config)
 
     dataset = ArabDataset(config.train_labels, config.train_wavs_path,
@@ -116,7 +131,8 @@ def main(argv=None) -> Trainer:
         log_dir=config.log_dir, checkpoint_dir=config.checkpoint_dir,
         n_save_states_iter=config.n_save_states_iter,
         n_save_backup_iter=config.n_save_backup_iter, seed=seed,
-        net_config=dataclasses.asdict(model_config), device=device)
+        net_config=dataclasses.asdict(model_config), device=device,
+        mesh=mesh)
     if config.get("restore_model"):
         trainer.restore(config.get_path("restore_model"))
 

@@ -17,8 +17,11 @@ the generator warm-starts from it (weight norm folded, its optimizer
 fresh; the discriminators start from their seeded init, as the reference
 publishes none) unless `--from-scratch`. `restore_model` resumes a run.
 Per-epoch validation runs on `test_labels` when the config gives usable
-ones. `--no-mesh` is accepted for the JAX CLI's command lines: the port
-trains on one card.
+ones.
+
+Data parallelism: under `torchrun --nproc-per-node N` the ranks form a
+1-D mesh (`parallel.torchrun_mesh`; `--no-mesh` keeps one process's run)
+and each step's batch is split over them (`Trainer(mesh=)`).
 """
 from __future__ import annotations
 
@@ -27,8 +30,8 @@ import dataclasses
 
 from ..data import VocoderSegmentDataset, collate_vocoder
 from ..models.convert import fold_weight_norm, load_reference_pth, to_tensors
+from ..parallel.mesh import torchrun_mesh
 from ..runtime.config import get_config
-from ..runtime.device import resolve_device
 from ..train.trainer import Trainer
 from ..train.vocoder import (init_vocoder_state, make_hifigan_eval_step,
                              make_hifigan_train_step)
@@ -44,13 +47,20 @@ def main(argv=None) -> Trainer:
     parser.add_argument("--max-steps", type=int, default=None,
                         help="stop after this many updates")
     parser.add_argument("--log-every", type=int, default=10)
-    parser.add_argument("--no-mesh", action="store_true",
-                        help="accepted and ignored: one card")
     parser.add_argument("--from-scratch", action="store_true",
                         help="skip the vocoder_state_path warm start")
-    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--device", default=None,
+                        help="cuda (default), cpu, or cuda:<i>; under "
+                             "torchrun cuda:$LOCAL_RANK by default")
+    parser.add_argument("--no-mesh", action="store_true",
+                        help="one process even under torchrun")
+    parser.add_argument("--dist-backend", default=None,
+                        help="torch.distributed backend under torchrun: "
+                             "nccl (default on cards) or gloo (default on "
+                             "the CPU; several ranks on one card)")
     args = parser.parse_args(argv)
-    device = resolve_device(args.device)
+    mesh, device = torchrun_mesh(args.device, args.dist_backend,
+                                 not args.no_mesh)
     config = get_config(args.config)
 
     seed = config.get("random_seed", 0) or 0
@@ -96,7 +106,8 @@ def main(argv=None) -> Trainer:
         log_dir=config.log_dir, checkpoint_dir=config.checkpoint_dir,
         n_save_states_iter=config.n_save_states_iter,
         n_save_backup_iter=config.n_save_backup_iter, seed=seed,
-        net_config=dataclasses.asdict(gen_config), device=device)
+        net_config=dataclasses.asdict(gen_config), device=device,
+        mesh=mesh)
     if config.get("restore_model"):
         trainer.restore(config.get_path("restore_model"))
 

@@ -1,17 +1,56 @@
-"""DTW alignment of feature sequences (the port's copy of the JAX
+"""DTW alignment of feature sequences (the port's counterpart of the JAX
 package's `eval/dtw.py`; reference `utils/oversmoothing.py:109-248`).
 
-The JAX package runs the DP in a C++ library (`native/dtw.cc`) when it can
-build one, and this numpy recurrence otherwise; the port keeps its own
-copy of the numpy recurrence only (same metrics, window, path and cost)
-and builds nothing of the JAX side. It is host code: evaluation scores
-mels on the host.
+The DP runs in the port's own host C++ library (`csrc/dtw.cc`, built at
+first use by `ops.build.host_library` into `build/`, called through
+ctypes): metrics L2 and cosine, a Sakoe-Chiba window, the reference's
+path. A library that cannot be built or loaded raises; nothing falls back.
+`_dtw_numpy`, the same recurrence in numpy (a Python loop over the cells),
+is the plain version the tests hold it against. Evaluation scores mels on
+the host, so this is host code.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import numpy as np
+
+from ..ops.build import host_library
+
+_F32P = ctypes.POINTER(ctypes.c_float)
+_I32P = ctypes.POINTER(ctypes.c_int32)
+
+
+def _library() -> ctypes.CDLL:
+    lib = host_library("dtw")
+    fn = lib.tts_dtw_path
+    fn.argtypes = [_F32P, _F32P] + [ctypes.c_int] * 5 + [_F32P, _I32P,
+                                                         _I32P]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _dtw_native(A: np.ndarray, B: np.ndarray, metric: int, window: int):
+    """The C++ recurrence: (total cost, path [L, 2] int32)."""
+    A = np.ascontiguousarray(A, np.float32)
+    B = np.ascontiguousarray(B, np.float32)
+    if A.ndim != 2 or B.ndim != 2 or A.shape[1] != B.shape[1]:
+        raise ValueError(f"DTW of {A.shape} against {B.shape}: two "
+                         "[T, M] sequences of one width")
+    Ta, M = A.shape
+    Tb = B.shape[0]
+    cost = ctypes.c_float()
+    path = np.empty((Ta + Tb, 2), np.int32)
+    n = ctypes.c_int32()
+    rc = _library().tts_dtw_path(A.ctypes.data_as(_F32P),
+                                 B.ctypes.data_as(_F32P), Ta, Tb, M, metric,
+                                 window, ctypes.byref(cost),
+                                 path.ctypes.data_as(_I32P), ctypes.byref(n))
+    if rc != 0:
+        raise ValueError(f"DTW of {A.shape} against {B.shape} "
+                         f"(metric {metric}) refused")
+    return float(cost.value), path[: n.value].copy()
 
 
 def _dtw_numpy(A, B, metric: int, window: int):
@@ -69,11 +108,10 @@ def dtw_path(A: np.ndarray, B: np.ndarray, metric: str = "cosine",
              window: Optional[int] = None):
     """DTW between time-major feature sequences A [Ta, M], B [Tb, M].
     metric: "cosine" or "l2"; window: a Sakoe-Chiba band half-width, or
-    None. Returns (total_cost, path [L, 2])."""
+    None. Returns (total_cost, path [L, 2]), from the native library."""
     mcode = 0 if metric.lower() == "l2" else 1
     w = -1 if window is None else int(window)
-    return _dtw_numpy(np.asarray(A, np.float32), np.asarray(B, np.float32),
-                      mcode, w)
+    return _dtw_native(A, B, mcode, w)
 
 
 def dtw_align_mels(mel_a: np.ndarray, mel_b: np.ndarray,
@@ -90,6 +128,6 @@ def dtw_align_mels(mel_a: np.ndarray, mel_b: np.ndarray,
 
 
 def using_native_kernel() -> bool:
-    """False: the port runs the numpy recurrence (a native DTW of its own
-    is queued in ROADMAP.md)."""
-    return False
+    """True once the native library is built and loaded (it raises
+    otherwise)."""
+    return _library() is not None

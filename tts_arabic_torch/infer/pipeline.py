@@ -34,6 +34,16 @@ dispatch of some 400 ops, and a replay is one.
 
 Entry points run on the card: `device=None` means "cuda" and raises when
 there is no CUDA device; pass `device="cpu"` to run on the CPU.
+
+Data parallelism (`mesh=`, a `parallel.make_mesh()` over the ranks of a
+`torch.distributed` world, one process a rank, each on its own device):
+every rank makes the same call with the same texts. A batch's rows are
+padded up to a multiple of the mesh's data axis, as the JAX package pads
+them; each rank encodes, decodes and vocodes its contiguous rows; the mel
+bucket is the batch's over every rank (one max all-reduce), as JAX's one
+global program picks it; and the waves are gathered, so every rank
+returns the whole batch in text order. `stream()` and the int8
+calibration run whole on every rank.
 """
 from __future__ import annotations
 
@@ -49,6 +59,8 @@ from ..audio.io import mulaw_encode
 from ..models.convert import fold_weight_norm, load_reference_pth, to_tensors
 from ..models.fastpitch import FastPitch, FastPitchConfig, regulate_len
 from ..models.layers import init_weights
+from ..parallel.mesh import (DATA_AXIS, all_gather, all_reduce,
+                             process_local_rows, replicate)
 from ..runtime.checkpoint import load_states
 from ..runtime.config import get_basic_config
 from ..runtime.device import resolve_device
@@ -147,12 +159,16 @@ class FastPitchTTS:
 
     def __init__(self, checkpoint=None, config: FastPitchConfig | None = None,
                  arabic_in: bool = True, vowelizer: Optional[str] = None,
-                 seed: int = 0, strict_text: bool = False, device=None):
+                 seed: int = 0, strict_text: bool = False, device=None,
+                 mesh=None):
         """strict_text: False (default) drops tokens outside the symbol
         table (trailing punctuation); True raises the reference's KeyError
         on them. vowelizer: the default diacritizer of every call
-        ("shakkala", "shakkelha" or None)."""
+        ("shakkala", "shakkelha" or None). mesh: a data-parallel mesh
+        (see the module docstring); the weights are replicated from its
+        first rank."""
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.arabic_in = arabic_in
         self.strict_text = strict_text
         self.default_vowelizer = vowelizer
@@ -170,6 +186,8 @@ class FastPitchTTS:
         else:
             self.model.load_state_dict(to_tensors(sd), strict=True)
         self.model.to(self.device).eval()
+        if mesh is not None:
+            replicate(self.model, mesh)
 
     def _load_checkpoint(self, checkpoint, config):
         """(state dict, config) from a reference `.pth`/`.pt` or from a
@@ -370,19 +388,38 @@ class FastPitchTTS:
                     return length
         return _round_up(max(n, 1), TEXT_BUCKET)
 
+    def _sharded(self, shard: bool) -> bool:
+        return shard and self.mesh is not None
+
+    def _global_max(self, x: torch.Tensor) -> list:
+        """x's values as ints, each the max over the mesh's ranks."""
+        if self.mesh is not None:
+            x = all_reduce(x, self.mesh, DATA_AXIS, op="max")
+        return x.tolist()
+
+    def _gather(self, x):
+        """Every rank's rows of x, in rank order (None stays None)."""
+        return None if x is None else all_gather(x, self.mesh, DATA_AXIS)
+
     def _encode_batch(self, ids_list, speaker_id, pitch_mul, pitch_add,
-                      pad_to=None, speed=1.0):
+                      pad_to=None, speed=1.0, shard=False):
         """Sort + pad + encode; returns (enc, inverse order, n_real). Batch
-        rows are padded to `pad_to` with one-pad-token rows."""
+        rows are padded to `pad_to` with one-pad-token rows. With `shard`
+        and a mesh, the rows are padded up to a multiple of its data axis
+        and this rank encodes its own (inverse and n_real stay global)."""
         n_real = len(ids_list)
         lens = np.asarray([len(x) for x in ids_list])
         order = np.argsort(-lens)
         ids_sorted = [ids_list[i] for i in order]
         rows = pad_to if pad_to is not None else n_real
+        if self._sharded(shard):     # the batch axis must divide the mesh
+            rows += (-rows) % self.mesh.axis_size(DATA_AXIS)
         if n_real < rows:
             ids_sorted += [np.zeros(1, np.int64)] * (rows - n_real)
         tokens = _pad_ids(ids_sorted,
                           self._text_length(int(lens.max()), len(ids_sorted)))
+        if self._sharded(shard):
+            tokens = tokens[process_local_rows(len(tokens), self.mesh)]
         tokens = torch.from_numpy(tokens).to(self.device)
         with _exact_f32():
             enc = self._graphed(("encode", tuple(tokens.shape)),
@@ -392,13 +429,18 @@ class FastPitchTTS:
         return enc, np.argsort(order), n_real
 
     def _infer_batch_mel(self, ids_list, speed, speaker_id, pitch_mul,
-                         pitch_add, pad_to=None):
+                         pitch_add, pad_to=None, shard=False):
         enc, inverse, _ = self._encode_batch(ids_list, speaker_id, pitch_mul,
-                                             pitch_add, pad_to, speed)
-        bucket = _pick_mel_bucket(int(enc["dec_len_max"]))
+                                             pitch_add, pad_to, speed, shard)
+        if self._sharded(shard):
+            bucket = _pick_mel_bucket(self._global_max(enc["dec_len_max"]))
+        else:
+            bucket = _pick_mel_bucket(int(enc["dec_len_max"]))
         with _exact_f32():
             mel, mel_lens = self._decode_fn(enc["enc_out"], enc["dur_pred"],
                                             float(speed), max_frames=bucket)
+        if self._sharded(shard):
+            mel, mel_lens = self._gather(mel), self._gather(mel_lens)
         return mel, mel_lens, inverse, bucket
 
     # -- public API ----------------------------------------------------------
@@ -409,7 +451,7 @@ class FastPitchTTS:
                     pad_to=None):
         mel, mel_lens, inverse, _ = self._infer_batch_mel(
             self.tokenize_batch(batch, vowelizer), speed, speaker_id,
-            pitch_mul, pitch_add, pad_to)
+            pitch_mul, pitch_add, pad_to, shard=True)
         mel = mel.float().cpu().numpy()
         mel_lens = mel_lens.cpu().numpy()
         return [mel[i, : mel_lens[i]].T for i in inverse]  # [80, T] each
@@ -478,7 +520,7 @@ class FastPitch2Wave:
                  compute_dtype: torch.dtype | None = None,
                  strict_text: bool = False, device=None,
                  vocoder_type: str = "hifigan",
-                 quantize: Optional[str] = None):
+                 quantize: Optional[str] = None, mesh=None):
         """compute_dtype: torch.bfloat16 runs the decoder and the vocoder in
         bf16 (weights stay f32 in memory and are cast per call); encode and
         the denoiser stay f32. None = f32 throughout.
@@ -495,7 +537,10 @@ class FastPitch2Wave:
 
         quantize: None or "int8": the static-calibrated int8 HiFi-GAN MRF
         stages and decoder FFN (`calibrate_int8`), calibrated in this
-        constructor on the built-in texts."""
+        constructor on the built-in texts.
+
+        mesh: a data-parallel mesh (see the module docstring); the weights
+        are replicated from its first rank."""
         _check_quantize(quantize)
         if vocoder_type not in ("hifigan", "vocos"):
             raise ValueError(f"unknown vocoder_type {vocoder_type!r}; "
@@ -505,13 +550,15 @@ class FastPitch2Wave:
         self.model = FastPitchTTS(model_sd_path, config=config,
                                   arabic_in=arabic_in, vowelizer=vowelizer,
                                   seed=seed, strict_text=strict_text,
-                                  device=device)
+                                  device=device, mesh=mesh)
         self.device = self.model.device
         if vocoder_type == "vocos":
             self._init_vocos(vocoder_sd, seed)
         else:
             self._init_hifigan(vocoder_sd, vocoder_config, seed,
                                model_sd_path is not None)
+        if mesh is not None:
+            replicate([self.vocoder, self.bias_spec], mesh)
         # the generator tts() and stream() run: the float module, or its
         # int8 form after calibrate_int8
         self._vocode = self.vocoder
@@ -683,17 +730,19 @@ class FastPitch2Wave:
         m = self.model
         return m._encode_batch(m.tokenize_batch(batch, vowelizer),
                                speaker_id, pitch_mul, pitch_add, pad_to,
-                               speed)
+                               speed, shard=True)
 
     def _dispatch_wave(self, enc_handles, speed, denoise, return_mel,
                        out_int16=False, dec_len_max=None):
         """Mel bucket from the batch's longest predicted length, then decode
         + vocode (+ denoise) at that bucket; the wave is cropped on the
         device to the real lengths rounded up to _CROP_FRAMES, so the copy
-        to the host skips most bucket padding."""
+        to the host skips most bucket padding. On a mesh `dec_len_max` is
+        the batch's over every rank, and this rank's rows are gathered."""
+        m = self.model
         enc, inverse, _ = enc_handles
         if dec_len_max is None:
-            dec_len_max = int(enc["dec_len_max"])
+            dec_len_max = m._global_max(enc["dec_len_max"])
         bucket = _pick_mel_bucket(dec_len_max)
         with _exact_f32():
             wave, mel, mel_lens = self._wave_fn(
@@ -704,6 +753,8 @@ class FastPitch2Wave:
         wave = wave[:, : frames * self.hop_length]
         if mel is not None:
             mel = mel[:, :frames]
+        if m.mesh is not None:
+            wave, mel, mel_lens = map(m._gather, (wave, mel, mel_lens))
         return wave, mel, mel_lens, inverse
 
     # crop granularity (frames) for device-side trims before the copy to
@@ -823,9 +874,13 @@ class FastPitch2Wave:
         """Run each (batch size, text bucket, mel bucket) once on zero
         tokens, so the first request pays no kernel build or cuDNN
         algorithm search; then capture the one-row encode and decoder
-        graphs (FastPitchTTS.capture_graphs) in the decode dtype."""
+        graphs (FastPitchTTS.capture_graphs) in the decode dtype. On a mesh
+        a batch size rounds up to the data axis and each rank runs its
+        share of the rows, as a real request."""
         m = self.model
         for bs in batch_sizes:
+            if m.mesh is not None:
+                bs = -(-bs // m.mesh.axis_size(DATA_AXIS))
             for tb in text_buckets:
                 tokens = torch.zeros((bs, tb), dtype=torch.long,
                                      device=self.device)
@@ -871,7 +926,8 @@ class FastPitch2Wave:
                                       speaker_id, vowelizer, pitch_mul,
                                       pitch_add, pad_to=bs)
                 for idxs in batches]
-        maxes = torch.stack([e[0]["dec_len_max"] for e in encs]).tolist()
+        maxes = self.model._global_max(
+            torch.stack([e[0]["dec_len_max"] for e in encs]))
         handles = [self._dispatch_wave(e, speed, denoise, return_mel,
                                        out_int16, dec_len_max=int(mx))
                    for e, mx in zip(encs, maxes)]

@@ -137,15 +137,26 @@ def _batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d) -> torch.Tensor:
 
 
 def _batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm1d,
-                      update: bool = True) -> torch.Tensor:
+                      update: bool = True, stats_sum=None) -> torch.Tensor:
     """BatchNorm in training, as flax computes it (channels-first x): the
     batch's mean and biased variance over (B, T), pad positions included,
     the variance as E[x^2] - E[x]^2 clipped at 0; with `update`, the
     running statistics move to 0.9 running + 0.1 batch, the variance
     biased (torch's `F.batch_norm` would move them by the unbiased
-    one)."""
-    mean = x.mean((0, 2))
-    var = torch.clamp((x * x).mean((0, 2)) - mean * mean, min=0.0)
+    one). `stats_sum` (data parallelism: a differentiable sum over the
+    ranks, `parallel.all_reduce_sum`) takes the statistics over the
+    global batch, so every rank normalizes, and moves its running
+    statistics, as JAX's one program over the global batch does."""
+    if stats_sum is None:
+        mean = x.mean((0, 2))
+        var = torch.clamp((x * x).mean((0, 2)) - mean * mean, min=0.0)
+    else:
+        C = x.shape[1]
+        tot = stats_sum(torch.cat([
+            x.sum((0, 2)), (x * x).sum((0, 2)),
+            x.new_full((1,), float(x.shape[0] * x.shape[2]))]))
+        mean = tot[:C] / tot[-1]
+        var = torch.clamp(tot[C:2 * C] / tot[-1] - mean * mean, min=0.0)
     if update:
         with torch.no_grad():
             bn.running_mean.copy_(_BN_MOMENTUM * bn.running_mean
@@ -506,7 +517,7 @@ class Tacotron2(nn.Module):
     def forward_train(self, tokens, token_lens, mel_tgt, mel_lens,
                       speaker_ids=None, *,
                       gen: Optional[torch.Generator] = None,
-                      update_stats: bool = True):
+                      update_stats: bool = True, stats_sum=None):
         """Teacher-forced forward in training (the JAX `__call__` with
         train=True), float32: dropout 0.5 after every encoder and postnet
         conv block, the prenet's always-on dropout, the attention and
@@ -515,17 +526,21 @@ class Tacotron2(nn.Module):
         LSTMs' for all steps up front (None: the prenet's masks from a
         generator seeded 0, no other dropout). With `update_stats` the
         BatchNorm running statistics move (flax's rule,
-        `_batch_norm_train`). Returns what `forward` returns."""
+        `_batch_norm_train`; `stats_sum` takes BatchNorm's statistics over
+        the global batch under data parallelism). Returns what `forward`
+        returns."""
         return self._teacher_forced(tokens, token_lens, mel_tgt, mel_lens,
                                     speaker_ids, gen=gen, train=True,
-                                    update_stats=update_stats)
+                                    update_stats=update_stats,
+                                    stats_sum=stats_sum)
 
     def _teacher_forced(self, tokens, token_lens, mel_tgt, mel_lens,
                         speaker_ids, *, gen, train: bool,
-                        update_stats: bool = False):
+                        update_stats: bool = False, stats_sum=None):
         if train:
             kw = dict(norm=functools.partial(_batch_norm_train,
-                                             update=update_stats),
+                                             update=update_stats,
+                                             stats_sum=stats_sum),
                       drop=functools.partial(self._dropout,
                                              rate=self.CONV_DROPOUT, gen=gen))
         else:

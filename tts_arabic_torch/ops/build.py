@@ -7,6 +7,10 @@ one shared library with a plain C interface in `build/` beside the package
 flags, so an edited source is rebuilt and a stale library is never loaded.
 Nothing here runs at import time: the CPU-only test suite imports every
 module on a machine that has no nvcc.
+
+`host_library` builds a host C++ source of `csrc/` (`*.cc`, no CUDA) with
+the host compiler into its own library in `build/`, named the same way;
+it runs wherever a C++ compiler does, the CPU-only machine included.
 """
 from __future__ import annotations
 
@@ -23,9 +27,12 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# no -ffast-math: the sums keep their order (float32, index order)
+CXX_FLAGS = ("-std=c++17", "-O3", "-fPIC", "-shared", "-Wall")
 
 _lock = threading.Lock()
 _lib = None
+_host_libs = {}
 build_log = ""        # nvcc's output (ptxas registers / spills) of the build
 build_seconds = 0.0   # 0.0 when the library was already built
 
@@ -46,6 +53,47 @@ def _sources() -> list[pathlib.Path]:
     return srcs
 
 
+def _hashed(stem: str, flags, srcs) -> pathlib.Path:
+    """build/<stem>_<hash of the flags and sources>.so"""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
+
+
+def _cxx() -> str:
+    path = shutil.which("c++")
+    if path is None:
+        raise RuntimeError("no host C++ compiler: `c++` is not on PATH, so "
+                           "the host libraries cannot be built")
+    return path
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """The library of the host source `csrc/<name>.cc`, built on first
+    call with the host compiler (CXX_FLAGS); raises when it cannot be
+    built or loaded."""
+    with _lock:
+        if name in _host_libs:
+            return _host_libs[name]
+        src = CSRC / f"{name}.cc"
+        out = _hashed(f"lib{name}", CXX_FLAGS, [src])
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            run = subprocess.run([_cxx(), *CXX_FLAGS, "-o", str(tmp),
+                                  str(src)], capture_output=True, text=True)
+            if run.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"building {src.name} failed:\n"
+                                   f"{run.stdout}{run.stderr}")
+            os.replace(tmp, out)
+        lib = ctypes.CDLL(str(out))
+        _host_libs[name] = lib
+        return lib
+
+
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built on first call."""
     global _lib, build_log, build_seconds
@@ -53,11 +101,7 @@ def library() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         srcs = _sources()
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for s in srcs:
-            h.update(s.name.encode())
-            h.update(s.read_bytes())
-        out = BUILD_DIR / f"libtts_kernels_{h.hexdigest()[:16]}.so"
+        out = _hashed("libtts_kernels", NVCC_FLAGS, srcs)
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")

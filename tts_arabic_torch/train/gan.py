@@ -81,7 +81,7 @@ class PatchDiscriminator(nn.Module):
             x = F.leaky_relu(x, 0.2)
             if i < self.n_convs - 1:
                 fmaps.append(x)
-        return x.reshape(x.shape[0], -1), fmaps, new
+        return x.flatten(1), fmaps, new
 
 
 def init_critic(critic: PatchDiscriminator, seed: int) -> dict:
@@ -142,12 +142,13 @@ def sample_chunk_params(generator: torch.Generator, batch_size: int,
     return mel_ids, ofx.to(torch.int32).to(torch.int64)
 
 
-def feature_match_loss(fmaps_gen, fmaps_org) -> torch.Tensor:
+def feature_match_loss(fmaps_gen, fmaps_org, mean=torch.mean) -> torch.Tensor:
     """Mean L1 between feature maps, the real side detached
-    (`loss.py:31-41`)."""
+    (`loss.py:31-41`); `mean` takes each map's mean (over the global
+    batch's chunks under data parallelism)."""
     loss = 0.0
     for g, o in zip(fmaps_gen, fmaps_org):
-        loss = loss + torch.mean(torch.abs(g - o.detach()))
+        loss = loss + mean(torch.abs(g - o.detach()))
     return loss / len(fmaps_gen)
 
 

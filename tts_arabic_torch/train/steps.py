@@ -18,11 +18,25 @@ Then backward -> global-norm clip -> AdamW, float32 throughout, as the JAX
 steps are. A step's dropout masks come from a generator on the device
 seeded by (seed, step), its chunk ids and offsets from another on the CPU,
 so a step can be replayed exactly and the card draws the CPU's chunks.
+
+Data parallelism (`TrainState.mesh`, set by `parallel.data_parallel_jit`
+and `Trainer(mesh=)`): the step gets this rank's rows of the global batch
+and computes what JAX's one global program computes. Every loss
+denominator is taken over the global batch, so the ranks' losses are
+shares of the global loss; the gradients are summed over the ranks before
+the clip (which so sees the global gradient) and AdamW; Tacotron2's
+BatchNorm takes its statistics over the global batch; the critic's chunks
+are drawn over the global batch and each rank scores those that fall in
+its rows; the returned meta is the global batch's. One difference stays:
+each rank draws its dropout masks from its own stream, seeded by (seed,
+step, rank), where JAX draws one mask for the global batch.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import math
 from typing import Optional
 
 import numpy as np
@@ -30,6 +44,9 @@ import torch
 
 from ..align.mas import mas_durations
 from ..eval.alignment import alignment_diagnostics
+from ..parallel.mesh import (DATA_AXIS, Mesh, all_gather, all_reduce,
+                             all_reduce_grads, all_reduce_sum, global_total,
+                             process_local_rows)
 from ..runtime.device import resolve_device
 from .gan import (CHUNK_LEN, PatchDiscriminator, critic_input,
                   feature_match_loss, init_critic, sample_chunk_params)
@@ -39,6 +56,7 @@ from .losses import (attention_binarization_loss, fastpitch_loss,
 GRAD_CLIP = 1000.0      # global-norm clip of the FastPitch and critic recipes
 CRITIC_CNUM = 32        # the reference's PatchDiscriminator(1, 32)
 _CHUNK_STREAM = 1 << 63  # keeps the chunk generator's seeds apart
+_RANK_STREAM = 1 << 56   # keeps the ranks' dropout seeds apart
 
 
 class ClippedAdamW(torch.optim.AdamW):
@@ -49,9 +67,13 @@ class ClippedAdamW(torch.optim.AdamW):
         super().__init__(params, **kw)
         self.grad_clip = grad_clip
 
-    def clip_and_step(self) -> torch.Tensor:
+    def clip_and_step(self, mesh: Optional[Mesh] = None) -> torch.Tensor:
         """Clip the gradients by their global norm, take the AdamW step;
-        returns the norm before the clip."""
+        returns the norm before the clip. On a mesh the gradients are first
+        summed over the data axis, so the clip sees the global one."""
+        if mesh is not None:
+            all_reduce_grads([p for g in self.param_groups
+                              for p in g["params"]], mesh)
         grads = [p.grad for g in self.param_groups for p in g["params"]
                  if p.grad is not None]
         norm = clip_by_global_norm(grads, self.grad_clip)
@@ -75,13 +97,15 @@ class TrainState:
     statistics in its buffers), its optimizer and the count of updates
     taken; for the adversarial recipe also the critic, its optimizer and
     its power-iteration vectors (`spectral`, {'conv<i>': u}). The step
-    functions update all of them in place."""
+    functions update all of them in place. `mesh`: the mesh whose data
+    axis the state is replicated over (None: one device)."""
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
     critic: Optional[torch.nn.Module] = None
     d_optimizer: Optional[torch.optim.Optimizer] = None
     spectral: Optional[dict] = None
+    mesh: Optional[Mesh] = None
 
 
 def make_optimizer(model: torch.nn.Module, lr=1e-4, beta1=0.9, beta2=0.999,
@@ -126,11 +150,31 @@ def _step_seed(seed: int, step: int) -> int:
     return (int(seed) << 32) + int(step)
 
 
-def dropout_generator(seed: int, step: int, device) -> torch.Generator:
-    """The step's dropout generator, seeded by (seed, step)."""
+def dropout_generator(seed: int, step: int, device,
+                      rank: int = 0) -> torch.Generator:
+    """The step's dropout generator, seeded by (seed, step) and, under
+    data parallelism, the rank (rank 0 draws the one-device stream)."""
     gen = torch.Generator(device=device)
-    gen.manual_seed(_step_seed(seed, step))
+    gen.manual_seed(_step_seed(seed, step) + rank * _RANK_STREAM)
     return gen
+
+
+def _rank(state: TrainState) -> int:
+    return 0 if state.mesh is None else state.mesh.axis_index(DATA_AXIS)
+
+
+def _reduce_meta(meta: dict, mesh: Optional[Mesh], mean: bool = False):
+    """The global batch's meta from the ranks' shares: summed over the data
+    axis in one collective (averaged with `mean`), `grad_norm` (global
+    already) as it is."""
+    if mesh is None:
+        return meta
+    keys = [k for k in meta if k != "grad_norm"]
+    tot = all_reduce(torch.stack([meta[k].float() for k in keys]), mesh)
+    if mean:
+        tot = tot / mesh.axis_size(DATA_AXIS)
+    meta.update(zip(keys, tot.unbind()))
+    return meta
 
 
 def chunk_generator(seed: int, step: int) -> torch.Generator:
@@ -156,19 +200,37 @@ def _frozen(module: torch.nn.Module):
 
 class _Critic:
     """One step's adversarial part: the chunks, the critic's update and the
-    generator's terms."""
+    generator's terms. On a mesh the chunks are drawn over the global batch
+    (every rank draws the same), each rank scores those of its rows, and
+    every mean over chunks divides by the global count."""
 
     def __init__(self, state: TrainState, batch: dict, dev, seed: int,
                  chunks):
+        mesh = state.mesh
         if chunks is None:
             lens = batch["mel_lens"]
             lens = (lens.cpu() if isinstance(lens, torch.Tensor)
                     else torch.as_tensor(np.asarray(lens)))
+            if mesh is not None:
+                lens = all_gather(lens, mesh)
             chunks = sample_chunk_params(chunk_generator(seed, state.step),
                                          len(lens), lens, CHUNK_LEN)
+        mel_ids, ofx = (torch.as_tensor(c).to(torch.long) for c in chunks)
+        self.n_chunks = None
+        if mesh is not None:
+            self.n_chunks = len(mel_ids)
+            rows = process_local_rows(len(batch["mel_lens"])
+                                      * mesh.axis_size(DATA_AXIS), mesh)
+            mine = (mel_ids >= rows.start) & (mel_ids < rows.stop)
+            mel_ids, ofx = mel_ids[mine] - rows.start, ofx[mine]
         self.state = state
-        self.mel_ids, self.ofx = (torch.as_tensor(c).to(dev, torch.long)
-                                  for c in chunks)
+        self.mel_ids, self.ofx = mel_ids.to(dev), ofx.to(dev)
+
+    def _mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean over every chunk of the (global) batch."""
+        if self.n_chunks is None:
+            return torch.mean(x)
+        return torch.sum(x) / (self.n_chunks * math.prod(x.shape[1:]))
 
     def update(self, mel_tgt: torch.Tensor, mel_fake: torch.Tensor) -> None:
         """The LSGAN critic step (`train_fp_adv.py:127-152`): the real and
@@ -180,11 +242,11 @@ class _Critic:
         fake = critic_input(mel_fake.detach(), self.mel_ids, self.ofx)
         d_org, fmaps_org, spectral = st.critic(real, st.spectral)
         d_gen, _, _ = st.critic(fake, st.spectral)
-        loss_d = (0.5 * torch.mean((d_org - 1.0) ** 2)
-                  + 0.5 * torch.mean(d_gen ** 2))
+        loss_d = (0.5 * self._mean((d_org - 1.0) ** 2)
+                  + 0.5 * self._mean(d_gen ** 2))
         st.d_optimizer.zero_grad(set_to_none=True)
         loss_d.backward()
-        st.d_optimizer.clip_and_step()
+        st.d_optimizer.clip_and_step(st.mesh)
         st.spectral = spectral
         self.fmaps_org = [f.detach() for f in fmaps_org]
         self.loss_d = loss_d.detach()
@@ -199,21 +261,22 @@ class _Critic:
         with _frozen(st.critic):
             d_gen, fmaps_gen, _ = st.critic(
                 critic_input(mel, self.mel_ids, self.ofx), st.spectral)
-        score = torch.mean((d_gen - 1.0) ** 2)
-        fmatch = feature_match_loss(fmaps_gen, self.fmaps_org)
+        score = self._mean((d_gen - 1.0) ** 2)
+        fmatch = feature_match_loss(fmaps_gen, self.fmaps_org, self._mean)
         meta.update(score=score, fmatch=fmatch, loss_d=self.loss_d)
         return loss + gan_loss_weight * score + feat_loss_weight * fmatch
 
 
 def _update(state: TrainState, loss: torch.Tensor, meta: dict) -> dict:
     """Backward, clip and AdamW for the model; returns the detached meta
-    with the pre-clip gradient norm."""
+    (the global batch's on a mesh) with the pre-clip gradient norm."""
     meta["loss"] = loss
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
-    meta["grad_norm"] = state.optimizer.clip_and_step()
+    meta["grad_norm"] = state.optimizer.clip_and_step(state.mesh)
     state.step += 1
-    return {k: v.detach() for k, v in meta.items()}
+    return _reduce_meta({k: v.detach() for k, v in meta.items()},
+                        state.mesh)
 
 
 def _fp_forward(model, b, durs, gen):
@@ -236,6 +299,7 @@ def make_fastpitch_train_step(*, device=None, gan_loss_weight: float = 3.0,
     def step(state: TrainState, batch: dict, seed: int = 0,
              chunks=None) -> dict:
         model = state.model
+        total = global_total(state.mesh)
         b = batch_to_device(batch, dev)
         with torch.no_grad():
             attn_soft, _ = model.align_attention(b["tokens"], b["mel_tgt"],
@@ -249,14 +313,14 @@ def make_fastpitch_train_step(*, device=None, gan_loss_weight: float = 3.0,
             critic = _Critic(state, batch, dev, seed, chunks)
             with torch.no_grad():
                 fake = _fp_forward(model, b, durs, dropout_generator(
-                    seed, state.step, dev))["mel_out"]
+                    seed, state.step, dev, _rank(state)))["mel_out"]
             critic.update(b["mel_tgt"], fake)
             del fake
 
-        out = _fp_forward(model, b, durs,
-                          dropout_generator(seed, state.step, dev))
-        loss, meta = fastpitch_loss(out, b)
-        kl = attention_binarization_loss(attn_hard, out["attn_soft"])
+        out = _fp_forward(model, b, durs, dropout_generator(
+            seed, state.step, dev, _rank(state)))
+        loss, meta = fastpitch_loss(out, b, total)
+        kl = attention_binarization_loss(attn_hard, out["attn_soft"], total)
         loss = loss + kl
         meta["kl_loss"] = kl
         if critic is not None:
@@ -297,10 +361,13 @@ def make_fastpitch_eval_step(*, device=None):
     return eval_step
 
 
-def _t2_forward(model, b, gen, update_stats=True):
+def _t2_forward(model, b, gen, update_stats=True, mesh=None):
+    stats_sum = (None if mesh is None else
+                 functools.partial(all_reduce_sum, mesh=mesh))
     return model.forward_train(b["tokens"], b["token_lens"], b["mel_tgt"],
                                b["mel_lens"], gen=gen,
-                               update_stats=update_stats)
+                               update_stats=update_stats,
+                               stats_sum=stats_sum)
 
 
 def make_tacotron_train_step(*, device=None, gan_loss_weight: float = 4.0,
@@ -322,15 +389,18 @@ def make_tacotron_train_step(*, device=None, gan_loss_weight: float = 4.0,
             critic = _Critic(state, batch, dev, seed, chunks)
             with torch.no_grad():
                 _, fake, _, _ = _t2_forward(
-                    model, b, dropout_generator(seed, state.step, dev),
-                    update_stats=False)
+                    model, b, dropout_generator(seed, state.step, dev,
+                                                _rank(state)),
+                    update_stats=False, mesh=state.mesh)
             critic.update(b["mel_tgt"], fake)
             del fake
 
         mel_out, mel_post, gates, _ = _t2_forward(
-            model, b, dropout_generator(seed, state.step, dev))
+            model, b, dropout_generator(seed, state.step, dev, _rank(state)),
+            mesh=state.mesh)
         loss, meta = tacotron2_loss(mel_out, mel_post, gates, b["mel_tgt"],
-                                    b["gate_tgt"], b["mel_lens"])
+                                    b["gate_tgt"], b["mel_lens"],
+                                    global_total(state.mesh))
         if critic is not None:
             loss = critic.generator_terms(mel_post, loss, meta,
                                           gan_loss_weight, feat_loss_weight)

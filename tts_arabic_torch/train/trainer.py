@@ -14,6 +14,14 @@ statistics, which `model` holds too, in the reference layout).
 Steps are counted in updates taken: the checkpoint after the n-th update
 says step n, and a restored run goes on from there. Log lines are labelled
 with the 0-based index of the step, as the JAX trainer labels them.
+
+With a mesh (data parallelism over `torch.distributed`, one process a
+rank): the model, the critic and its vectors are replicated from rank 0;
+every rank shuffles with the same seed, collates the same global batch and
+steps on its own rows (`parallel.data_parallel_jit`), so the state stays
+the same on every rank; only rank 0 logs, validates and writes
+checkpoints, and a restore reads the checkpoint on rank 0 and broadcasts
+it.
 """
 from __future__ import annotations
 
@@ -21,7 +29,9 @@ import time
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
+from ..parallel.mesh import data_parallel_jit, replicate
 from ..runtime.checkpoint import CheckpointManager, load_states
 from ..runtime.device import resolve_device
 from ..runtime.logging import MetricLogger
@@ -43,12 +53,19 @@ class Trainer:
     def __init__(self, step_fn: Callable, state: TrainState, *, log_dir,
                  checkpoint_dir, n_save_states_iter: int = 100,
                  n_save_backup_iter: int = 1000, seed: int = 0,
-                 net_config: Optional[dict] = None, device=None):
+                 net_config: Optional[dict] = None, device=None, mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.rank == 0
         self.step_fn = step_fn
+        if mesh is not None:
+            self.step_fn = data_parallel_jit(step_fn, mesh)
+            state.mesh = mesh
+            replicate([state.model, state.critic or [],
+                       state.spectral or {}], mesh)
         self.state = state
         self.seed = seed
-        self.logger = MetricLogger(log_dir)
+        self.logger = MetricLogger(log_dir) if self.is_main else None
         self.ckpt = CheckpointManager(checkpoint_dir, n_save_states_iter,
                                       n_save_backup_iter)
         self.net_config = net_config or {}
@@ -57,9 +74,20 @@ class Trainer:
         """Load model, optimizer and step from `path` (default: the latest
         `states.ckpt`); returns the step, 0 when there is nothing."""
         path = path or self.ckpt.latest()
+        if self.mesh is not None:   # rank 0's view of the checkpoint
+            box = [path]
+            dist.broadcast_object_list(box, self._src(),
+                                       group=self.mesh.group(None))
+            path = box[0]
         if path is None:
             return 0
-        st = load_states(path)
+        if self.mesh is None:
+            st = load_states(path)
+        else:
+            box = [load_states(path) if self.is_main else None]
+            dist.broadcast_object_list(box, self._src(),
+                                       group=self.mesh.group(None))
+            st = box[0]
         state = self.state
         state.model.load_state_dict(st["model"])
         if st.get("batch_stats") is not None:
@@ -77,7 +105,14 @@ class Trainer:
         state.step = int(st["step"])
         return state.step
 
+    def _src(self) -> int:
+        return int(self.mesh.devices.reshape(-1)[0])
+
     def save(self, epoch: int, force: bool = False) -> list:
+        """The checkpoint at this step when the cadence (or `force`) says
+        so; on a mesh only rank 0 writes. Returns the paths written."""
+        if not self.is_main:
+            return []
         state = self.state
         trees = {"model": state.model.state_dict(),
                  "optim": state.optimizer.state_dict()}
@@ -100,7 +135,10 @@ class Trainer:
         (`MetricLogger.log_alignment_and_mels`; reference `validate()`,
         train.py:19-58). `eval_fn(state, batch) -> (meta, artifacts)`, see
         `make_fastpitch_eval_step`; artifacts None (the vocoder's) draw
-        nothing. Figures need matplotlib."""
+        nothing. Figures need matplotlib. On a mesh only rank 0 validates
+        (the whole batches, with no collective); the others return {}."""
+        if not self.is_main:
+            return {}
         sums, n = {}, 0
         first_artifacts = None
         for b_idx in range(len(val_dataset)):
@@ -150,7 +188,7 @@ class Trainer:
                 index = self.state.step
                 t0 = time.perf_counter()
                 meta = self.step_fn(self.state, batch, self.seed)
-                if index % log_every == 0:
+                if index % log_every == 0 and self.is_main:
                     meta_host = {k: float(v) for k, v in meta.items()}
                     meta_host["step_time"] = time.perf_counter() - t0
                     self.logger.log_scalars(index, meta_host,
@@ -168,4 +206,5 @@ class Trainer:
         return self.state
 
     def close(self) -> None:
-        self.logger.close()
+        if self.logger is not None:
+            self.logger.close()

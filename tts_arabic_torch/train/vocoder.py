@@ -19,6 +19,12 @@ The state is `steps.TrainState` with `model` = the `Generator`, `critic` =
 `nn.ModuleDict(mpd=..., msd=...)` and `spectral` None, so
 `train.trainer.Trainer` checkpoints it under JAX's keys (`model`, `optim`,
 `model_d`, `optim_d`).
+
+Data parallelism (`TrainState.mesh`): every term is a mean over its
+tensor's elements, and every rank holds the same number of crops of the
+same length, so the global batch's loss is the mean of the ranks' losses:
+each rank back-propagates its loss over the data axis's size and the
+gradients are summed before the clips (`ClippedAdamW.clip_and_step`).
 """
 from __future__ import annotations
 
@@ -32,7 +38,9 @@ from ..models.layers import init_weights
 from ..runtime.device import resolve_device
 from ..vocoder.discriminators import (discriminator_loss, feature_loss,
                                       generator_loss)
-from .steps import TrainState, _frozen, batch_to_device, make_optimizer
+from ..parallel.mesh import DATA_AXIS
+from .steps import (TrainState, _frozen, _reduce_meta, batch_to_device,
+                    make_optimizer)
 
 WEIGHT_DECAY = 0.01     # the JAX CLI's adamw(..., weight_decay=0.01)
 
@@ -87,6 +95,8 @@ def make_hifigan_train_step(*, device=None, mel_weight: float = 45.0,
     def step(state: TrainState, batch: dict, seed: int = 0) -> dict:
         del seed
         gen, critic = state.model, state.critic
+        share = 1.0 if state.mesh is None else 1.0 / state.mesh.axis_size(
+            DATA_AXIS)
         wave = batch_to_device(batch, dev)["wave"]
         mel_in = _logmel(wave, cfg)
         with torch.no_grad():
@@ -100,8 +110,8 @@ def make_hifigan_train_step(*, device=None, mel_weight: float = 45.0,
         staircase_lr(state.d_optimizer, state.step, lr_decay,
                      steps_per_epoch)
         state.d_optimizer.zero_grad(set_to_none=True)
-        loss_d.backward()
-        state.d_optimizer.clip_and_step()
+        (loss_d * share if share != 1.0 else loss_d).backward()
+        state.d_optimizer.clip_and_step(state.mesh)
         del y_hat_ng, s_r, s_g
 
         y_hat = gen(mel_in)
@@ -116,13 +126,14 @@ def make_hifigan_train_step(*, device=None, mel_weight: float = 45.0,
         loss = adv_f + adv_s + fm_f + fm_s + mel_weight * l_mel
         staircase_lr(state.optimizer, state.step, lr_decay, steps_per_epoch)
         state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        state.optimizer.clip_and_step()
+        (loss * share if share != 1.0 else loss).backward()
+        state.optimizer.clip_and_step(state.mesh)
         state.step += 1
         meta = dict(loss=loss, loss_d=loss_d, d_mpd_loss=ld_f,
                     d_msd_loss=ld_s, mel_loss=l_mel,
                     gen_adv_loss=adv_f + adv_s, feat_loss=fm_f + fm_s)
-        return {k: v.detach() for k, v in meta.items()}
+        return _reduce_meta({k: v.detach() for k, v in meta.items()},
+                            state.mesh, mean=True)
 
     return step
 
