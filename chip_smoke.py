@@ -16,18 +16,22 @@ what comes out.
 
 Phases, one line each (and a table for the kernel checks):
 1. device: nvidia-smi's name and power limit, torch's device name
-2. kernel build (nvcc, sm_90a), its seconds, and ptxas's registers, stack
-   and spills for each kernel
+2. kernel build (nvcc, sm_90a), its seconds, ptxas's registers, stack
+   and spills for each kernel, and each ResBlock kernel's tensor-core
+   instructions in the library's SASS (`cuobjdump -sass`: every f32
+   kernel must run TF32 HMMA, every bf16 kernel BF16 HMMA)
    (then one untimed warm tts() of phase 4, which records the mel shapes
    of its generator calls)
 3. kernel checks: resblock1 wide (C 256/128/64) and narrow (C 64/32),
-   k 3/7/11, dilations 1/3/5, f32 (the CUDA-core kernels) and bf16 (the
-   tensor-core kernels), at the main path's widths and
+   k 3/7/11, dilations 1/3/5, f32 (the 3xTF32 tensor-core kernels) and
+   bf16 (the bf16 tensor-core kernels), at the main path's widths and
    stage lengths (each generator call's frames x the stage's samples per
    frame, batch 8), and once 3 rows shorter, which no tile divides, against
    `resblock1_plain`: f32 with TF32 off; bf16 against the plain version run
    in f32 on the same bf16 inputs. At the main path's lengths: the
-   kernel's ms, the plain version's ms (same dtype) and the bound
+   kernel's ms, the plain version's ms (same dtype), the bound (f32: the
+   operations at 3xTF32's 165 TFLOP/s, and beside it at the CUDA cores'
+   67) and the bound's share of the kernel's time
 4. main path: full-width FastPitch (d_model 384, 6+6 layers) + HiFi-GAN V1
    in bf16 on 16 prompts of data/infer_text.txt, batch 8, denoise 0.005,
    random weights from seed 0 with the duration head biased by +2.0; three
@@ -126,11 +130,15 @@ Phases, one line each (and a table for the kernel checks):
    the gate set from its capped decode's logits so its rows stop at
    distinct steps (graphed = eager, lengths as the logits predict); one
    tts() under torch.profiler (the ResBlock kernels' share of device
-   time and wall); the fused device path against the host path on the
-   first batch (within 1e-4), the kernels against the plain ResBlocks on
-   those mels (SNR > 40 dB); stream() of the shortest prompt against
-   tts_single(postprocess_mel=False) (within 1e-4) with the time to its
-   first chunk against the whole call (min of 3, graphs on both sides)
+   time and wall, beside their 3xTF32 and CUDA-core bounds); the fused
+   device path against the host path on the first batch (within 1e-4),
+   the kernels against the plain ResBlocks on those mels (SNR > 40 dB);
+   the f32 kernels at the counted tts()'s stage shapes (seeded inputs,
+   within 1e-4 of the plain version) timed beside the plain version
+   (cuDNN f32, TF32 off) with both bounds; stream() of the shortest
+   prompt against tts_single(postprocess_mel=False) (within 1e-4) with
+   the time to its first chunk against the whole call (min of 3, graphs
+   on both sides)
 13. Tacotron2 apps: the inference CLI with --model tacotron2 on 8 prompts
    from a reference `.pth` (f32, eager decode) within 1 LSB of the same
    weights' tts(speed=1.0); the server with a one-entry `tacotron2`
@@ -213,7 +221,8 @@ Phases, one line each (and a table for the kernel checks):
    kernels at the training shapes (segment 8192 = 32 frames, stage
    lengths 256/2048/4096/8192 at C 256/128/64/32, k 3/7/11, at each batch
    size of the run) against `resblock1_plain` (TF32 off) with their ms,
-   the plain version's ms and the bound, and `ResBlock1Function`'s
+   the plain version's ms (cuDNN f32) and the bounds (3xTF32's and the
+   CUDA cores'), and `ResBlock1Function`'s
    gradients against autograd of the plain version (GRAD_TOL of their
    norm); then `apps.train_vocoder.main` with configs/hifigan_ft.yaml's
    values (HiFi-GAN V1 warm-started from a seeded reference `.pth`, full
@@ -319,11 +328,15 @@ record (for each ResBlock variant its ms, plain_ms and bound_ms summed
 over the serving path's bf16 launches, as timed in phase 3; for MAS the
 same sums over the training run's launches, as timed in phase 6;
 `tacotron2_launches` and `int8_launches`, each kernel's launches in phase
-12's and phase 14's counted tts(); for MAS also `adversarial_launches`
+12's and phase 14's counted tts(); for the ResBlocks `tacotron2_ms`,
+`tacotron2_plain_ms`, `tacotron2_bound_ms` (3xTF32),
+`tacotron2_cuda_core_ms` and `tacotron2_max_abs_err`, the f32 kernels
+at phase 12's stage shapes; for MAS also `adversarial_launches`
 and `adversarial_ms`, phase 17's launches and their summed kernel ms;
 `vocoder_train_launches`, phase 19's, and for the ResBlocks
-`vocoder_train_ms`, `vocoder_train_plain_ms` and `vocoder_train_bound_ms`
-summed over them as timed in phase 19; `bundle_launches` and
+`vocoder_train_ms`, `vocoder_train_plain_ms`, `vocoder_train_bound_ms`
+(3xTF32) and `vocoder_train_cuda_core_ms` summed over them as timed in
+phase 19; `bundle_launches` and
 `tacotron2_bundle_launches`, phase 20's launches while the FastPitch and
 the Tacotron2 bundle served the 16 prompts; `tacotron2_gate_launches`,
 phase 21's counted tts(), and for the ResBlocks `tacotron2_gate_ms`,
@@ -346,7 +359,9 @@ import json
 import math
 import pathlib
 import queue as queue_mod
+import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -365,6 +380,14 @@ N_TIMED = 3             # timed tts() calls in phase 4, the last counted
 # the card's published peaks (H100 SXM data sheet, dense, 700 W)
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
+# the f32 ResBlock kernels run 3xTF32 on the tensor cores: three TF32
+# products a term at the TF32 tensor rate (495 TFLOP/s dense) bound their
+# operations at a third of it. PEAK_FLOPS[float32] stays the f32 CUDA
+# cores' rate, which bounds the Tacotron2 decode's cuBLAS f32 GEMMs (TF32
+# off); the ResBlock rows print it beside the new bound, as their CUDA-core
+# bound (the rate of cuDNN's f32 convs, and of the first, CUDA-core
+# design of these kernels)
+RESBLOCK_F32_FLOPS = 495e12 / 3
 # kernel vs plain: max |kernel - plain| <= TOL * max |plain|. f32: the two
 # differ by summation order only; bf16: the kernel rounds each conv output
 # and residual to bf16 (as the TPU kernel rounds to x.dtype), the plain
@@ -492,8 +515,7 @@ def ptxas_lines(build_log: str) -> list[str]:
                       r"\w*?kernel)(I\w*?E)?E", ln)
         if m:
             targs = m.group(2) or ""
-            args = re.findall(r"Li(\d+)E", targs) or (
-                ["float"] if targs == "IfE" else [])
+            args = re.findall(r"Li(\d+)E", targs)
             name = m.group(1) + (f"<{','.join(args)}>" if args else "")
         elif re.search(r"registers|spill", ln):
             out.setdefault(name, []).append(
@@ -501,16 +523,56 @@ def ptxas_lines(build_log: str) -> list[str]:
     return [f"{n}: {'; '.join(v)}" for n, v in out.items()]
 
 
+def sass_mma(lib_path: str) -> dict | None:
+    """Each ResBlock kernel's tensor-core instructions in the built
+    library (`cuobjdump -sass`): {kernel: Counter of HMMA opcodes}; None
+    where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out, name = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : \w*?\d+(resblock1\w*?kernel)(I\w*?E)?E",
+                      ln)
+        if m:
+            args = re.findall(r"Li(\d+)E", m.group(2) or "")
+            name = m.group(1) + (f"<{','.join(args)}>" if args else "")
+            out[name] = collections.Counter()
+        elif "Function :" in ln:
+            name = None
+        elif name and (op := re.search(r"\b(HMMA\.\S+)", ln)):
+            out[name][op.group(1)] += 1
+    return out
+
+
 def phase_build() -> None:
+    """Builds the kernels; prints ptxas's registers and spills per kernel
+    and, from the library's SASS, each ResBlock kernel's tensor-core
+    instructions: every f32 (tf32) kernel must run TF32 HMMA and every
+    bf16 (mma) kernel BF16 HMMA."""
     from tts_arabic_torch.ops import build
     t0 = time.perf_counter()
-    build.library()
+    lib = build.library()
     took = time.perf_counter() - t0
     srcs = ", ".join(p.name for p in sorted(build.CSRC.glob("*.cu")))
     log(f"[2 build] {srcs} -> sm_90a in {took:.2f} s "
         f"(nvcc {build.build_seconds:.2f} s, one process per source)")
     for ln in ptxas_lines(build.build_log):
         log(f"    ptxas: {ln}")
+    mma = sass_mma(lib._name)
+    if mma is None:
+        log("    sass: no cuobjdump in the toolkit, not listed")
+        return
+    for name, ops in sorted(mma.items()):
+        log(f"    sass: {name}: " + (", ".join(
+            f"{op} x {n}" for op, n in sorted(ops.items())) or "no HMMA"))
+        want = ("TF32" if "tf32_kernel" in name else
+                "BF16" if "mma_kernel" in name else None)
+        if want and not any(want in op for op in ops):
+            raise AssertionError(f"{name}: no {want} HMMA in its SASS")
 
 
 def _case(C: int, k: int, T: int, dtype, gen: torch.Generator,
@@ -529,12 +591,22 @@ def _case(C: int, k: int, T: int, dtype, gen: torch.Generator,
 def bound(C: int, k: int, T: int, dtype,
           batch: int = BATCH) -> tuple[float, float]:
     """Least times (ms) for one ResBlock1 on [batch, T, C]: 6 convs of
-    2 k C^2 FLOPs per row at the dtype's peak, and x read once, y written
+    2 k C^2 FLOPs per row at the kernels' rate for the dtype (bf16 tensor
+    cores; f32 3xTF32, RESBLOCK_F32_FLOPS), and x read once, y written
     once and the weights read once at the memory rate."""
     esize = torch.finfo(dtype).bits // 8
     flops = 12 * k * C * C * batch * T
     nbytes = 2 * batch * T * C * esize + 6 * k * C * C * esize + 6 * C * 4
-    return flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+    peak = (RESBLOCK_F32_FLOPS if dtype == torch.float32
+            else PEAK_FLOPS[dtype])
+    return flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def cuda_core_ms(C: int, k: int, T: int, batch: int = BATCH) -> float:
+    """One f32 ResBlock1's operations at the f32 CUDA cores' rate (ms): the
+    bound of cuDNN's f32 convs and of the kernels' first, CUDA-core
+    design, printed beside the 3xTF32 bound."""
+    return 12 * k * C * C * batch * T / PEAK_FLOPS[torch.float32] * 1e3
 
 
 def _rel_err(rb, name, C, k, T, dtype, gen, batch: int = BATCH):
@@ -574,9 +646,14 @@ def phase_kernel_checks(frames: list[int]) -> dict:
     set_tf32(False)     # f32 plain convs in full f32, not TF32
     log(f"[3 kernel checks] B={BATCH}, T = stage length of the main path's "
         f"generator calls ({' and '.join(map(str, frames))} frames), and "
-        "of the first less 3 rows; err = max|kernel - plain| / max|plain|")
+        "of the first less 3 rows; err = max|kernel - plain| / max|plain|; "
+        "f32: the 3xTF32 tensor-core kernels, bound_ms their operations at "
+        f"{RESBLOCK_F32_FLOPS / 1e12:.0f} TFLOP/s (cc_ms: at the CUDA cores' "
+        f"{PEAK_FLOPS[torch.float32] / 1e12:.0f}); bf16: the bf16 "
+        "tensor-core kernels; share = bound_ms / ms")
     log(f"    {'variant':17} {'C':>4} {'k':>3} {'dtype':>5} {'T':>7} "
-        f"{'err':>9} {'tol':>7} {'ms':>9} {'plain_ms':>9} {'bound_ms':>9}")
+        f"{'err':>9} {'tol':>7} {'ms':>9} {'plain_ms':>9} {'bound_ms':>9} "
+        f"{'cc_ms':>9} {'share':>6}")
     variants = ([("resblock1_wide", C) for C in WIDE_CHANNELS]
                 + [("resblock1_narrow", C) for C in NARROW_CHANNELS])
     for name, C in variants:
@@ -594,9 +671,13 @@ def phase_kernel_checks(frames: list[int]) -> dict:
                     plain_ms = cuda_ms(lambda: rb.resblock1_plain(
                         *args, k, DILATIONS))
                     t_ops, t_bytes = bound(C, k, T, dtype)
+                    b_ms = max(t_ops, t_bytes)
+                    cc = (f"{cuda_core_ms(C, k, T):>9.3f}"
+                          if dtype == torch.float32 else f"{'-':>9}")
                     log(f"    {name:17} {C:>4} {k:>3} {dname:>5} {T:>7} "
                         f"{rel:>9.2e} {TOL[dtype]:>7.0e} {ms:>9.3f} "
-                        f"{plain_ms:>9.3f} {max(t_ops, t_bytes):>9.3f}")
+                        f"{plain_ms:>9.3f} {b_ms:>9.3f} {cc} "
+                        f"{100 * b_ms / ms:>5.1f}%")
                     # the JSON record: the main path's own launches (bf16,
                     # each width on the variant that serves it), summed
                     # over its generator calls
@@ -1877,6 +1958,44 @@ def t2_profile_decode(pipe, batch: tuple, steps: int) -> dict:
                 ops_step=n_ops / steps, top=by_name.most_common(8))
 
 
+def stage_kernel_times(calls: list, dtype, seed: int) -> tuple[dict, list]:
+    """The ResBlock kernels in `dtype` at the stage shapes of generator
+    calls (`calls`: their mel shapes; a shape that recurs is timed once and
+    counted for each call), on seeded inputs: each held against the plain
+    version in f32 (TOL), then timed beside the plain version on the same
+    inputs (in `dtype`; f32 with the caller's TF32 setting) and its bound.
+    Returns per variant ms, plain_ms, bound_ms (f32 also cuda_core_ms) and
+    max_abs_err summed over the calls' stages (errors: the largest), and
+    a line per shape."""
+    from tts_arabic_torch.ops import resblock as rb
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    f32 = dtype == torch.float32
+    out, rows = {}, []
+    for (b, f), n in collections.Counter(
+            (b, f) for b, f, _ in calls).items():
+        for C, per_frame in STAGE_T.items():
+            name, T = rb.variant(C), f * per_frame
+            for k in KERNEL_SIZES:
+                args, err, rel = _rel_err(rb, name, C, k, T, dtype, gen, b)
+                got = dict(ms=cuda_ms(lambda: _launch(rb, name, *args, k)),
+                           plain_ms=cuda_ms(lambda: rb.resblock1_plain(
+                               *args, k, DILATIONS)),
+                           bound_ms=max(bound(C, k, T, dtype, batch=b)))
+                if f32:
+                    got["cuda_core_ms"] = cuda_core_ms(C, k, T, b)
+                s = out.setdefault(name, dict.fromkeys(got, 0.0))
+                for key, v in got.items():
+                    s[key] += n * v
+                s["max_abs_err"] = max(s.get("max_abs_err", 0.0), err)
+                rows.append(f"{name[10:]} C={C} k={k} [{b}, {T}] x{n} err "
+                            f"{rel:.2e} {got['ms']:.3f}/{got['plain_ms']:.3f}"
+                            f"/{got['bound_ms']:.3f}"
+                            + (f"/{got['cuda_core_ms']:.3f}" if f32 else ""))
+                del args
+    torch.cuda.empty_cache()
+    return out, rows
+
+
 def phase_tacotron2(smi: str) -> dict:
     """Tacotron2Wave.tts() of the 16 prompts at full width in f32, batch 8,
     with the decode-block graphs of its two batches captured by warmup():
@@ -1884,9 +2003,11 @@ def phase_tacotron2(smi: str) -> dict:
     and read just after), the decode alone per step against its bound,
     graphed and eager, a DECODE_BLOCK sweep, a ragged-stop batch, one
     tts() under torch.profiler, fused = host path, the kernels against
-    the plain ResBlocks, stream() against tts_single(postprocess_mel=
-    False); returns the ResBlock launches of the counted tts() and its
-    real-time factor."""
+    the plain ResBlocks, the f32 kernels timed at the generator calls'
+    stage shapes beside the plain version (cuDNN f32, TF32 off), stream()
+    against tts_single(postprocess_mel=False); returns the ResBlock
+    launches of the counted tts(), its real-time factor and the kernels'
+    times (`stage_kernel_times`)."""
     from tts_arabic_torch.models import tacotron2 as t2
     from tts_arabic_torch.ops import mas as mas_ops
     from tts_arabic_torch.ops import resblock as rb
@@ -1927,13 +2048,15 @@ def phase_tacotron2(smi: str) -> dict:
     if launches != want or mas_ops.LAUNCHES["mas"]:
         raise AssertionError(f"Tacotron2 tts() launches {launches}, "
                              f"expected {want}, mas 0")
-    # the ResBlock kernels' f32 bound over this tts()'s generator calls
-    rb_bound = collections.Counter()
+    # the ResBlock kernels' f32 bounds over this tts()'s generator calls:
+    # 3xTF32's, and the CUDA cores'
+    rb_bound, rb_cc = collections.Counter(), collections.Counter()
     for B, F, _ in calls:
         for C, per_frame in STAGE_T.items():
             for k in KERNEL_SIZES:
                 rb_bound[rb.variant(C)] += max(bound(
                     C, k, F * per_frame, torch.float32, batch=B))
+                rb_cc[rb.variant(C)] += cuda_core_ms(C, k, F * per_frame, B)
     frames = [len(w) // pipe.hop_length for w in waves]
     for i, w in enumerate(waves):
         if not (w.ndim == 1 and w.size and np.isfinite(w).all()
@@ -2047,10 +2170,13 @@ def phase_tacotron2(smi: str) -> dict:
             f"{100 * (1 - busy / 1e3 / wall):.1f}%), {n_ops} device ops "
             f"summing {dev:.1f} ms | ResBlock kernels {rb_ms:.1f} ms = "
             f"{100 * rb_ms / dev:.1f}% of the device time, "
-            f"{100 * rb_ms / 1e3 / wall:.1f}% of the wall: wide (f32) "
-            f"{wide_ms:.1f} ms, bound {rb_bound['resblock1_wide']:.1f}; "
-            f"narrow (f32) {rb_ms - wide_ms:.1f} ms, bound "
-            f"{rb_bound['resblock1_narrow']:.1f} | top: "
+            f"{100 * rb_ms / 1e3 / wall:.1f}% of the wall: wide (f32, "
+            f"3xTF32) {wide_ms:.1f} ms, bound "
+            f"{rb_bound['resblock1_wide']:.1f} (CUDA cores "
+            f"{rb_cc['resblock1_wide']:.1f}); narrow (f32) "
+            f"{rb_ms - wide_ms:.1f} ms, bound "
+            f"{rb_bound['resblock1_narrow']:.1f} (CUDA cores "
+            f"{rb_cc['resblock1_narrow']:.1f}) | top: "
             + "; ".join(f"{n} {v:.1f} ms" for n, v in by_name.most_common(8))
             + f" | {smi}")
 
@@ -2077,6 +2203,19 @@ def phase_tacotron2(smi: str) -> dict:
     log(f"[12 tacotron2 checks] fused path = host path within {worst:.2e} "
         f"(8 prompts, lengths equal) | kernels vs plain ResBlocks on those "
         f"mels: SNR min {min(snrs):.2f} dB (> {SNR_GATE[torch.float32]})")
+
+    # the f32 kernels at this tts()'s stage shapes, beside cuDNN's f32
+    timed, rows = stage_kernel_times(calls, torch.float32, 12)
+    log(f"[12 tacotron2 kernels] f32 (3xTF32 tensor cores) at the "
+        f"generator calls' stage shapes, seeded inputs, {tf32_state()}, err "
+        f"= max|kernel - plain| / max|plain| (<= {TOL[torch.float32]:.0e}), "
+        f"kernel/plain/bound/CUDA-core bound ms: " + "; ".join(rows) + " | "
+        + "; ".join(f"{n}: {v['ms']:.1f} ms for its {launches[n]} launches "
+                    f"(plain cuDNN f32 {v['plain_ms']:.1f}, bound "
+                    f"{v['bound_ms']:.1f} = "
+                    f"{100 * v['bound_ms'] / v['ms']:.1f}%, CUDA-core bound "
+                    f"{v['cuda_core_ms']:.1f})"
+                    for n, v in timed.items()) + f" | {smi}")
 
     # stream() against tts_single(postprocess_mel=False), one row
     text = min(prompts, key=len)
@@ -2106,7 +2245,7 @@ def phase_tacotron2(smi: str) -> dict:
         f"| {smi}")
     del pipe, m, waves, fused, host, mels
     torch.cuda.empty_cache()
-    return launches, audio_s / walls[-1]
+    return launches, audio_s / walls[-1], timed
 
 
 def phase_tacotron2_apps(smi: str, tmp: pathlib.Path) -> None:
@@ -3158,23 +3297,28 @@ def phase_tacotron_training(root: pathlib.Path, smi: str) -> dict:
 def voc_kernel_checks(frames: int, batches: list, smi: str) -> dict:
     """The f32 ResBlock kernels at vocoder training's shapes (each stage of
     a `frames`-frame segment, k 3/7/11, at each batch size of the run):
-    kernel vs `resblock1_plain` (TF32 off), kernel ms, plain ms and bound;
-    then `ResBlock1Function`'s gradients against autograd of the plain
-    version at the largest batch (GRAD_TOL of their norm). Returns per
-    variant {batch: (ms, plain_ms, bound_ms, t_ops, t_bytes)} summed over
-    one generator forward's launches, and the largest errors."""
+    kernel vs `resblock1_plain` (TF32 off), kernel ms, plain ms (cuDNN
+    f32) and bound (3xTF32's, and the CUDA cores'); then
+    `ResBlock1Function`'s gradients against autograd of the plain version
+    at the largest batch (GRAD_TOL of their norm). Returns per variant
+    {batch: (ms, plain_ms, bound_ms, t_ops, t_bytes, cuda_core_ms)} summed
+    over one generator forward's launches, and the largest errors."""
     from tts_arabic_torch.ops import resblock as rb
     gen = torch.Generator(device="cuda").manual_seed(19)
     set_tf32(False)
     per = {}
     max_abs = grad_rel = 0.0
     B = max(batches)
-    log(f"[19 kernel checks] f32 (CUDA cores), TF32 off, training shapes: "
-        f"{frames} frames a segment, batch {' and '.join(map(str, batches))}"
-        f"; err = max|kernel - plain| / max|plain|; grad = max over x, w1, "
-        f"b1, w2, b2 of |g_function - g_plain| / |g_plain| at batch {B}")
+    log(f"[19 kernel checks] f32 (3xTF32 tensor cores), TF32 off, training "
+        f"shapes: {frames} frames a segment, batch "
+        f"{' and '.join(map(str, batches))}; err = max|kernel - plain| / "
+        f"max|plain|; grad = max over x, w1, b1, w2, b2 of |g_function - "
+        f"g_plain| / |g_plain| at batch {B}; bound_ms at 3xTF32's "
+        f"{RESBLOCK_F32_FLOPS / 1e12:.0f} TFLOP/s, cc_ms at the CUDA cores' "
+        f"{PEAK_FLOPS[torch.float32] / 1e12:.0f}")
     log(f"    {'variant':17} {'C':>4} {'k':>3} {'B':>3} {'T':>6} {'err':>9} "
-        f"{'grad':>9} {'ms':>8} {'plain_ms':>9} {'bound_ms':>9}")
+        f"{'grad':>9} {'ms':>8} {'plain_ms':>9} {'bound_ms':>9} "
+        f"{'cc_ms':>8}")
     for C, t_per in STAGE_T.items():
         T = t_per * frames
         name = rb.variant(C)
@@ -3192,17 +3336,19 @@ def voc_kernel_checks(frames: int, batches: list, smi: str) -> dict:
                     g = _function_grad_rel(rb, args, k)
                     grad_rel = max(grad_rel, g)
                     g_msg = f"{g:.2e}"
-                row = per.setdefault(name, {}).setdefault(b, [0.0] * 5)
+                cc = cuda_core_ms(C, k, T, b)
+                row = per.setdefault(name, {}).setdefault(b, [0.0] * 6)
                 for i, v in enumerate((ms, plain_ms, max(t_ops, t_bytes),
-                                       t_ops, t_bytes)):
+                                       t_ops, t_bytes, cc)):
                     row[i] += v
                 log(f"    {name:17} {C:>4} {k:>3} {b:>3} {T:>6} {rel:>9.2e} "
                     f"{g_msg:>9} {ms:>8.3f} {plain_ms:>9.3f} "
-                    f"{max(t_ops, t_bytes):>9.3f}")
+                    f"{max(t_ops, t_bytes):>9.3f} {cc:>8.3f}")
                 del args
     log(f"    one forward's ResBlocks, batch {B}: " + "; ".join(
-        f"{n} {v[B][0]:.2f} ms (plain {v[B][1]:.2f}, bound {v[B][2]:.2f})"
-        for n, v in per.items()) + f" | {smi}")
+        f"{n} {v[B][0]:.2f} ms (plain {v[B][1]:.2f}, bound {v[B][2]:.2f}, "
+        f"CUDA-core bound {v[B][5]:.2f})" for n, v in per.items())
+        + f" | {smi}")
     if not grad_rel <= GRAD_TOL:
         raise AssertionError(f"ResBlock1Function gradients {grad_rel:.2e} "
                              f"> {GRAD_TOL}")
@@ -3465,7 +3611,7 @@ def phase_vocoder_training(root: pathlib.Path, smi: str) -> dict:
     n_fwd = {b: 2 * train_b.count(b) + val_b.count(b)
              for b in set(train_b + val_b)}
     summed = {name: [sum(n_fwd[b] * v[b][i] for b in n_fwd)
-                     for i in range(5)] for name, v in checks["per"].items()}
+                     for i in range(6)] for name, v in checks["per"].items()}
     gen_gflop = generator_flops_per_frame(state.model.config) * frames / 1e9
     log(f"[19 vocoder training] train_vocoder.main, HiFi-GAN V1 warm-started"
         f" from a seeded reference .pth + MPD {periods} + MSD "
@@ -3478,7 +3624,8 @@ def phase_vocoder_training(root: pathlib.Path, smi: str) -> dict:
         f"({len(repeat)} at a batch size met before: {repeat_ms:.1f} ms a "
         f"step) | launches {launches} | ResBlock kernels over the run's "
         f"launches (phase 19 times): " + "; ".join(
-            f"{n} {v[0]:.2f} ms (bound {v[2]:.2f})" for n, v in summed.items())
+            f"{n} {v[0]:.2f} ms (plain {v[1]:.2f}, bound {v[2]:.2f}, "
+            f"CUDA-core bound {v[5]:.2f})" for n, v in summed.items())
         + f" | generator forward {gen_gflop * bs:.1f} GFLOP at batch {bs} | "
         f"every generator and discriminator parameter moved | checkpoint "
         f"step {restored} restores model, optim, model_d, optim_d equal | "
@@ -3943,35 +4090,9 @@ GATE_MAX_FALLBACK = 2   # utterances that may decode to the cap off target
 
 def gate_kernel_times(calls: list, smi: str) -> dict:
     """The bf16 ResBlock kernels at the stage shapes of phase 21's
-    generator calls (`calls`: their mel shapes), on seeded inputs: each
-    held against the plain version in f32 (TOL), then timed beside the
-    plain version on the same bf16 inputs and its bound. Returns, per
-    variant, ms, plain_ms, bound_ms and max_abs_err summed (errors: the
-    largest) over the calls' stages."""
-    from tts_arabic_torch.ops import resblock as rb
-    gen = torch.Generator(device="cuda").manual_seed(21)
+    generator calls (`stage_kernel_times`), logged."""
     dt = torch.bfloat16
-    out = {}
-    rows = []
-    for b, f, _ in calls:
-        for C, per_frame in STAGE_T.items():
-            name, T = rb.variant(C), f * per_frame
-            for k in KERNEL_SIZES:
-                args, err, rel = _rel_err(rb, name, C, k, T, dt, gen, b)
-                ms = cuda_ms(lambda: _launch(rb, name, *args, k))
-                plain_ms = cuda_ms(lambda: rb.resblock1_plain(
-                    *args, k, DILATIONS))
-                b_ms = max(bound(C, k, T, dt, batch=b))
-                s = out.setdefault(name, dict(ms=0.0, plain_ms=0.0,
-                                              bound_ms=0.0, max_abs_err=0.0))
-                s["ms"] += ms
-                s["plain_ms"] += plain_ms
-                s["bound_ms"] += b_ms
-                s["max_abs_err"] = max(s["max_abs_err"], err)
-                rows.append(f"{name[10:]} C={C} k={k} [{b}, {T}] err "
-                            f"{rel:.2e} {ms:.3f}/{plain_ms:.3f}/{b_ms:.3f}")
-                del args
-    torch.cuda.empty_cache()
+    out, rows = stage_kernel_times(calls, dt, 21)
     log(f"[21 gate kernels] bf16 at the generator call's stage shapes, "
         f"seeded inputs, err = max|kernel - plain f32| / max|plain| (<= "
         f"{TOL[dt]:.0e}), kernel/plain bf16/bound ms: " + "; ".join(rows)
@@ -4816,7 +4937,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="smoke_apps_",
                                      dir=build_dir) as tmp:
         phase_apps(smi, pathlib.Path(tmp))
-    t2_launches, t2_rtf = phase_tacotron2(smi)
+    t2_launches, t2_rtf, t2_timed = phase_tacotron2(smi)
     with tempfile.TemporaryDirectory(prefix="smoke_t2_apps_",
                                      dir=build_dir) as tmp:
         phase_tacotron2_apps(smi, pathlib.Path(tmp))
@@ -4868,12 +4989,18 @@ def main() -> int:
                          else "bytes"),
             "library_ms": None,
             "tacotron2_launches": t2_launches[kname],
+            # phase 12: the f32 (3xTF32) kernels at the counted Tacotron2
+            # tts()'s stage shapes: kernel, plain (cuDNN f32, TF32 off),
+            # 3xTF32 and CUDA-core bound ms and error, summed over its calls
+            **{f"tacotron2_{k}": v for k, v in t2_timed[kname].items()},
             "int8_launches": int8_launches[kname],
             # phase 19: vocoder training's f32 launches, and their kernel,
-            # plain and bound ms summed as timed at the run's shapes
+            # plain, bound (3xTF32) and CUDA-core bound ms summed as timed
+            # at the run's shapes
             "vocoder_train_launches": voc["launches"][kname],
-            **{f"vocoder_train_{k}": v for k, v in zip(
-                ("ms", "plain_ms", "bound_ms"), voc["summed"][kname])},
+            **{f"vocoder_train_{k}": voc["summed"][kname][i] for k, i in (
+                ("ms", 0), ("plain_ms", 1), ("bound_ms", 2),
+                ("cuda_core_ms", 5))},
             # phase 20: launches inside the exported wave programs while a
             # bundle served the 16 prompts (FastPitch, Tacotron2)
             "bundle_launches": fp_bundle["launches"][kname],

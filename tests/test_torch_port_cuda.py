@@ -131,6 +131,99 @@ def test_unsupported_width_raises(cuda):
         rb.resblock1(shifted, w1, b1, w2, b2, 3, DIL)
 
 
+F32_VARIANTS = [
+    ("resblock1_wide", 256), ("resblock1_wide", 128), ("resblock1_wide", 64),
+    ("resblock1_narrow", 64), ("resblock1_narrow", 32),
+    ("resblock1_narrow", 16), ("resblock1_narrow", 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 11])
+@pytest.mark.parametrize("variant,C", F32_VARIANTS)
+def test_f32_kernel_rows_do_not_depend_on_their_tile(cuda, variant, C, k,
+                                                     monkeypatch):
+    """f32 (3xTF32): the rows of a call at T = 1000 that its end does not
+    reach (all but the block's halo) are bit-equal to the same rows inside
+    a longer call that starts with the same 1000 rows; the rows its start
+    does not reach to those of a call that starts 37 rows earlier, where
+    every row lies in another tile, m-tile and lane; and its two batch rows
+    to the first two of a call of eight (a grid that may take the other
+    wide tile height). Each row's sum runs in one order wherever a call
+    cuts the sequence (the stream windows against the whole call)."""
+    monkeypatch.setattr(rb, "variant", lambda c: variant)
+    halo = (k - 1) // 2 * sum(d + 1 for d in DIL)
+    x = _case(C, k, 1296, torch.float32, seed=k)[0]
+    x8, w1, b1, w2, b2 = _case(C, k, 1000, torch.float32, seed=k + 2)
+    x8 = x8.repeat(4, 1, 1)
+    x8[:2] = x[:, 37:1037]
+
+    def run(t0, t1):
+        return rb.resblock1(x[:, t0:t1].contiguous(), w1, b1, w2, b2, k, DIL)
+    ref = run(37, 1037)
+    longer = run(37, 1296)
+    earlier = run(0, 1037)
+    eight = rb.resblock1(x8, w1, b1, w2, b2, k, DIL)
+    torch.cuda.synchronize()
+    assert torch.equal(longer[:, :1000 - halo], ref[:, :1000 - halo])
+    assert torch.equal(earlier[:, 37 + halo:], ref[:, halo:])
+    assert torch.equal(eight[:2], ref)
+    assert not torch.equal(longer[:, :1000], ref)   # the end does reach
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 11])
+@pytest.mark.parametrize("variant,C", F32_VARIANTS)
+def test_f32_kernel_as_close_to_float64_as_plain_f32(cuda, variant, C, k,
+                                                     monkeypatch):
+    """f32 (3xTF32) anchored to float64: the kernel's largest distance from
+    the plain version run in float64 on the card is at most twice that of
+    the plain version in f32 (TF32 off). One TF32 product a term would be
+    about a thousand times as far (tests/test_torch_port_resblock_tf32.py)."""
+    monkeypatch.setattr(rb, "variant", lambda c: variant)
+    x, w1, b1, w2, b2 = _case(C, k, 1000, torch.float32, seed=k + 1)
+    got = rb.resblock1(x, w1, b1, w2, b2, k, DIL)
+    plain = rb.resblock1_plain(x, w1, b1, w2, b2, k, DIL)
+    exact = rb.resblock1_plain(*(t.double() for t in (x, w1, b1, w2, b2)),
+                               k, DIL)
+    torch.cuda.synchronize()
+    d_kernel = float((got.double() - exact).abs().max())
+    d_plain = float((plain.double() - exact).abs().max())
+    assert d_kernel <= 2 * d_plain, (d_kernel, d_plain)
+
+
+@pytest.mark.cuda
+def test_f32_kernels_split_as_the_cpu_model(cuda):
+    """The f32 kernels' split of an operand (cvt.rna.tf32.f32, a subtract,
+    cvt.rna.tf32.f32 again) on the card, word for word the plain version
+    that tests/test_torch_port_resblock_tf32.py holds to its numpy model:
+    ties, carries, subnormals, signed zeros, the largest magnitudes, and
+    random words of every exponent (the small part of +-inf is NaN on both
+    sides)."""
+    words = [0x3F800000, 0x3F801000, 0x3F800FFF, 0x3F801001, 0xBF801000,
+             0x3F803000, 0x3FFFF000, 0xBFFFFFFF, 0x00000000, 0x80000000,
+             0x00000001, 0x80000FFF, 0x00001000, 0x00345678, 0x007FF000,
+             0x7F7FEFFF, 0x7F7FFFFF, 0xFF7FF000, 0x7F800000, 0xFF800000]
+    g = torch.Generator().manual_seed(0)
+    rand = torch.randint(-2 ** 31, 2 ** 31, (20000,), generator=g,
+                         dtype=torch.int64)
+    v = torch.cat([torch.tensor(words, dtype=torch.int64), rand])
+    v = ((v + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32).view(
+        torch.float32)
+    v = v[torch.isfinite(v) | (torch.arange(len(v)) < len(words))]
+    want = rb.tf32_split(v)
+    got = rb.tf32_split(v.to(cuda))
+    torch.cuda.synchronize()
+    for part, w, o in zip(("big", "small"), want, got):
+        o = o.cpu()
+        # inf - inf: a NaN on both, whose payload is the subtract's own
+        nan = torch.isnan(w)
+        assert torch.equal(torch.isnan(o), nan), part
+        bad = (o.view(torch.int32) != w.view(torch.int32)) & ~nan
+        assert not bad.any(), [
+            (f"{a:#010x}", f"{b:#010x}", f"{c:#010x}") for a, b, c in zip(
+                *(t[bad][:5].view(torch.int32).tolist() for t in (v, o, w)))]
+
+
 def _mas_case(B, T_mel, T_txt, seed):
     """Log-softmaxed random scores; random lengths in [1, T], the first row
     at full size and, where T_mel < T_txt allows it, rows with out_len <

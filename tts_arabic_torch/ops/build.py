@@ -129,12 +129,14 @@ def library() -> ctypes.CDLL:
             os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
         p, i = ctypes.c_void_p, ctypes.c_int
-        for fn, n_int in (("resblock1_pass_f32", 6),
+        for fn, n_int in (("resblock1_pass_f32", 5),
                           ("resblock1_pass_bf16", 5),
-                          ("resblock1_fused_f32", 9),
+                          ("resblock1_fused_f32", 8),
                           ("resblock1_fused_bf16", 8)):
             getattr(lib, fn).argtypes = [p] * 6 + [i] * n_int + [p]
             getattr(lib, fn).restype = i
+        lib.resblock1_tf32_split.argtypes = [p, p, p, i, p]
+        lib.resblock1_tf32_split.restype = i
         lib.mas_forward.argtypes = [p] * 5 + [i] * 3 + [p]
         lib.mas_forward.restype = i
         lib.mas_scratch_words.argtypes = [i, i]

@@ -5,9 +5,11 @@ variant here, C >= 64: one fused [leaky -> dilated conv -> leaky -> conv ->
 add] pass per launch, three launches per ResBlock) and `::
 resblock_pallas_packed` (the narrow variant, C <= 32: the whole ResBlock in
 one launch). Source: `csrc/resblock1.cu`, whose note gives the designs, the
-shared-memory budgets and what bounds each. bf16 runs implicit-GEMM convs on
-the tensor cores (`mma.sync`, weights streamed through shared memory by
-`cp.async`); f32 runs the first design on the f32 CUDA cores.
+shared-memory budgets and what bounds each. Both dtypes run implicit-GEMM
+convs on the tensor cores (`mma.sync`, weights streamed through shared
+memory by `cp.async`): bf16 in bf16, f32 in 3xTF32 (each operand split into
+two TF32 parts, three products a term, f32 accumulation; `tf32_split`
+gives the split on either device).
 
 `resblock1` takes the plain version only for tensors on the CPU. For a CUDA
 tensor it launches the kernel or raises; nothing falls back. `LAUNCHES`
@@ -38,13 +40,14 @@ LRELU_SLOPE = 0.1
 # kernel launches per variant (plain-version calls are not counted)
 LAUNCHES = {"resblock1_wide": 0, "resblock1_narrow": 0}
 
-# f32 kernels: time rows per block, the most each variant's shared memory
-# allows at k=11 with a few blocks per SM (see csrc/resblock1.cu)
-_WIDE_TILE = {256: 32, 128: 64, 64: 64}
-_NARROW_TILE = {64: 64, 32: 128, 16: 128, 8: 128}
-# widths the bf16 kernels are built for (their tiles are fixed in the source)
-_WIDTHS_BF16 = {"resblock1_wide": (256, 128, 64),
-                "resblock1_narrow": (64, 32, 16)}
+# widths each kernel is built for (their tiles are fixed in the source); K
+# runs in steps of 16 channels in bf16, of 8 in f32
+_WIDTHS = {
+    (torch.float32, "resblock1_wide"): (256, 128, 64),
+    (torch.float32, "resblock1_narrow"): (64, 32, 16, 8),
+    (torch.bfloat16, "resblock1_wide"): (256, 128, 64),
+    (torch.bfloat16, "resblock1_narrow"): (64, 32, 16),
+}
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -218,14 +221,12 @@ def _launch(x, w1k, b1, w2k, b2, kernel_size, dilations) -> torch.Tensor:
     k = kernel_size
     name = variant(C)
     narrow = name == "resblock1_narrow"
-    bf16 = x.dtype == torch.bfloat16
-    widths = (_WIDTHS_BF16[name] if bf16
-              else _NARROW_TILE if narrow else _WIDE_TILE)
-    if C not in widths or (narrow and len(dilations) > 3):
+    if C not in _WIDTHS[x.dtype, name] or (narrow and len(dilations) > 3):
         raise ValueError(f"no {name} kernel for C={C}, "
                          f"{len(dilations)} dilations in {x.dtype}")
-    if bf16 and x.data_ptr() % 16:     # the kernel reads x 16 bytes at once
-        raise ValueError("bf16 x must start on a 16-byte boundary")
+    if x.data_ptr() % 16:               # the kernels read x 16 bytes at once
+        raise ValueError("x must start on a 16-byte boundary")
+    suffix = "bf16" if x.dtype == torch.bfloat16 else "f32"
     b1k = b1.contiguous().to(torch.float32)
     b2k = b2.contiguous().to(torch.float32)
     with torch.cuda.device(x.device):
@@ -233,25 +234,23 @@ def _launch(x, w1k, b1, w2k, b2, kernel_size, dilations) -> torch.Tensor:
         out = torch.empty_like(x)
         if narrow:
             d = list(dilations) + [1] * (3 - len(dilations))
-            args = (x.data_ptr(), out.data_ptr(), w1k.data_ptr(),
-                    b1k.data_ptr(), w2k.data_ptr(), b2k.data_ptr(), B, T, C,
-                    k, len(dilations), d[0], d[1], d[2])
-            err = (lib.resblock1_fused_bf16(*args, stream) if bf16 else
-                   lib.resblock1_fused_f32(*args, _NARROW_TILE[C], stream))
+            err = getattr(lib, f"resblock1_fused_{suffix}")(
+                x.data_ptr(), out.data_ptr(), w1k.data_ptr(), b1k.data_ptr(),
+                w2k.data_ptr(), b2k.data_ptr(), B, T, C, k, len(dilations),
+                d[0], d[1], d[2], stream)
             _raise_on(err, name)
             LAUNCHES[name] += 1
             return out
         # one launch per pass, ping-ponging between two buffers; the last
         # pass lands in `out`
+        launch = getattr(lib, f"resblock1_pass_{suffix}")
         bufs = [out, torch.empty_like(x)]
         src = x
         for i, d in enumerate(dilations):
             dst = bufs[(len(dilations) - 1 - i) % 2]
-            args = (src.data_ptr(), dst.data_ptr(), w1k[i].data_ptr(),
-                    b1k[i].data_ptr(), w2k[i].data_ptr(), b2k[i].data_ptr(),
-                    B, T, C, k, d)
-            err = (lib.resblock1_pass_bf16(*args, stream) if bf16 else
-                   lib.resblock1_pass_f32(*args, _WIDE_TILE[C], stream))
+            err = launch(src.data_ptr(), dst.data_ptr(), w1k[i].data_ptr(),
+                         b1k[i].data_ptr(), w2k[i].data_ptr(),
+                         b2k[i].data_ptr(), B, T, C, k, d, stream)
             _raise_on(err, name)
             LAUNCHES[name] += 1
             src = dst
@@ -261,3 +260,38 @@ def _launch(x, w1k, b1, w2k, b2, kernel_size, dilations) -> torch.Tensor:
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def _tf32_rna(v: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 on f32 bits: rounded to 10 mantissa bits, to
+    nearest with ties away from zero (half of the dropped 13 bits' unit
+    added to the magnitude, a carry running into the exponent), the low 13
+    bits zero; infinities stay, NaN stays NaN."""
+    bits = v.contiguous().view(torch.int32)
+    out = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(v), out, v)
+
+
+def tf32_split(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The split the f32 kernels make of each operand, v ~ big + small with
+    big = cvt.rna.tf32(v) and small = cvt.rna.tf32(v - big), both f32
+    tensors of TF32 values. A CPU tensor gets the plain version; a CUDA
+    tensor the kernels' own split, run elementwise (a probe for the tests,
+    on no model's path and not counted in LAUNCHES)."""
+    if v.dtype != torch.float32:
+        raise TypeError(f"tf32_split takes float32, not {v.dtype}")
+    v = v.contiguous()
+    if v.device.type == "cpu":
+        big = _tf32_rna(v)
+        return big, _tf32_rna(v - big)
+    if v.device.type != "cuda":
+        raise ValueError(f"tf32_split runs on cuda or cpu, not {v.device}")
+    from .build import library
+    big, small = torch.empty_like(v), torch.empty_like(v)
+    if v.numel():
+        with torch.cuda.device(v.device):
+            err = library().resblock1_tf32_split(
+                v.data_ptr(), big.data_ptr(), small.data_ptr(), v.numel(),
+                torch.cuda.current_stream().cuda_stream)
+        _raise_on(err, "resblock1_tf32_split")
+    return big, small
