@@ -6,6 +6,8 @@ JAX, so it runs on a machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider -q \
         tests/test_torch_port_cuda.py
 """
+import contextlib
+
 import pytest
 import torch
 
@@ -485,6 +487,45 @@ def test_stream_equals_tts_single_on_the_card(cuda):
     assert streamed.shape == full.shape == eager.shape
     assert np.abs(streamed - full).max() <= 1e-4
     assert np.abs(full - eager).max() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_tts_spans_time_the_device_and_add_no_sync(cuda):
+    """tts() at batch 2 in bf16 under `profiling.recording()`: the four
+    device stages carry positive device ms, and the call makes as many
+    synchronising CUDA calls (`set_sync_debug_mode("warn")`) as with
+    recording off."""
+    import warnings
+
+    from tts_arabic_torch.runtime import profiling
+    pipe = _card_pipe(torch.bfloat16)
+    texts = [STREAM_TEXT, " ".join([STREAM_TEXT] * 3), "qAla"]
+    pipe.tts(texts, batch_size=2)               # builds and plans
+
+    def syncs(on):
+        profiling.clear()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught, \
+                (profiling.recording() if on
+                 else contextlib.nullcontext()):
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                pipe.tts(texts, batch_size=2)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return sum("synchroniz" in str(w.message) for w in caught)
+
+    syncs(False)        # a warning raised once per site goes here
+    off = syncs(False)
+    assert profiling.recorded() == []
+    on = syncs(True)
+    assert on == off > 0
+    spans = profiling.recorded()
+    for name in ("tts.encode", "tts.decode", "tts.vocode", "tts.denoise"):
+        got = [s.device_ms for s in spans if s.name == name]
+        assert len(got) == 2 and all(ms > 0 for ms in got), (name, got)
+    profiling.clear()
 
 
 @pytest.mark.cuda

@@ -183,7 +183,7 @@ def test_profiling_on_the_cpu(tmp_path):
 
     def fn():
         calls.append(1)
-        with profiling.annotate("matmul"):
+        with profiling.span("matmul"):
             return {"y": [torch.ones(64, 64) @ torch.ones(64, 64)]}
 
     timing = profiling.benchmark(fn, warmup=2, iters=5)
@@ -192,7 +192,11 @@ def test_profiling_on_the_cpu(tmp_path):
     assert timing.spread_s >= 0 and "median" in str(timing)
     tree = fn()
     assert profiling.block(tree) is tree
+    profiling.clear()
     with profiling.trace(tmp_path / "trace") as prof:
         fn()
     assert (tmp_path / "trace" / "trace.json").is_file()
-    assert any(e.key == "matmul" for e in prof.key_averages())
+    # the span is recorded under the profiler, and is none of its events
+    assert [s.name for s in profiling.recorded()] == ["matmul"]
+    assert not any(e.key == "matmul" for e in prof.key_averages())
+    profiling.clear()

@@ -64,6 +64,7 @@ from ..parallel.mesh import (DATA_AXIS, all_gather, all_reduce,
 from ..runtime.checkpoint import load_states
 from ..runtime.config import get_basic_config
 from ..runtime.device import resolve_device
+from ..runtime.profiling import count, enabled, span
 from ..vocoder import denoiser as denoiser_mod
 from ..vocoder.hifigan import Generator, HiFiGANConfig, chunked_vocode
 
@@ -705,32 +706,42 @@ class FastPitch2Wave:
                  max_frames, use_denoiser, return_mel=False,
                  out_int16=False):
         m = self.model
-        if self.compute_dtype is not None:
-            enc_out = enc_out.to(self.compute_dtype)
-        mel, mel_lens = m._decode_fn(enc_out, durations, pace,
-                                     max_frames=max_frames,
-                                     ffn_scales=self._ffn_scales)
+        with span("tts.decode", device=self.device):
+            if enabled():
+                count(frames_decoded=enc_out.shape[0] * max_frames)
+            if self.compute_dtype is not None:
+                enc_out = enc_out.to(self.compute_dtype)
+            mel, mel_lens = m._decode_fn(enc_out, durations, pace,
+                                         max_frames=max_frames,
+                                         ffn_scales=self._ffn_scales)
         if self.vocoder_type == "vocos":
             # the ConvNeXt stack sees about +-27 frames: a 32-frame overlap
             # keeps chunked == whole (JAX infer/pipeline.py:616-624)
-            wave = chunked_vocode(
-                lambda x: self._vocode_mel(x, denoise_strength,
-                                           use_denoiser),
-                mel, core=192, overlap=32)
+            with span("tts.vocode", device=self.device):
+                wave = chunked_vocode(
+                    lambda x: self._vocode_mel(x, denoise_strength,
+                                               use_denoiser),
+                    mel, core=192, overlap=32)
         else:
-            wave = chunked_vocode(self._vocode, mel).float()
+            with span("tts.vocode", device=self.device):
+                wave = chunked_vocode(self._vocode, mel).float()
             if use_denoiser:
-                wave = denoiser_mod.denoise(wave, self.bias_spec,
-                                            denoise_strength)
+                with span("tts.denoise", device=self.device):
+                    wave = denoiser_mod.denoise(wave, self.bias_spec,
+                                                denoise_strength)
         mel = mel.float() if return_mel else None
         return _output(wave, out_int16), mel, mel_lens
 
     def _dispatch_encode(self, batch, speed, speaker_id, vowelizer,
                          pitch_mul, pitch_add, pad_to):
         m = self.model
-        return m._encode_batch(m.tokenize_batch(batch, vowelizer),
-                               speaker_id, pitch_mul, pitch_add, pad_to,
-                               speed, shard=True)
+        with span("tts.frontend"):
+            if enabled():
+                count(utterances=len(batch))
+            ids = m.tokenize_batch(batch, vowelizer)
+        with span("tts.encode", device=self.device):
+            return m._encode_batch(ids, speaker_id, pitch_mul, pitch_add,
+                                   pad_to, speed, shard=True)
 
     def _dispatch_wave(self, enc_handles, speed, denoise, return_mel,
                        out_int16=False, dec_len_max=None):
@@ -764,13 +775,16 @@ class FastPitch2Wave:
     def _collect_batch(self, handles, return_mel):
         """Copy to the host, crop per utterance, unsort."""
         wave, mel, mel_lens, inverse = handles
-        wave = wave.cpu().numpy()
-        lens = mel_lens.cpu().numpy()
-        hop = self.hop_length
-        waves = [wave[i, : lens[i] * hop] for i in inverse]
-        if return_mel:
-            mel = mel.cpu().numpy()
-            return waves, [mel[i, : lens[i]].T for i in inverse]
+        with span("tts.collect"):
+            wave = wave.cpu().numpy()
+            lens = mel_lens.cpu().numpy()
+            if enabled():
+                count(frames_kept=int(lens[inverse].sum()))
+            hop = self.hop_length
+            waves = [wave[i, : lens[i] * hop] for i in inverse]
+            if return_mel:
+                mel = mel.cpu().numpy()
+                return waves, [mel[i, : lens[i]].T for i in inverse]
         return waves
 
     def tts_batch(self, batch: List[str], speed: float = 1.0,
@@ -912,8 +926,14 @@ class FastPitch2Wave:
                   vowelizer=vowelizer, pitch_mul=pitch_mul,
                   pitch_add=pitch_add, return_mel=return_mel,
                   out_int16=out_int16)
-        if isinstance(text_input, str):
-            return self.tts_single(text_input, **kw)
+        with span("tts"):
+            if isinstance(text_input, str):
+                return self.tts_single(text_input, **kw)
+            return self._tts_batches(text_input, batch_size, **kw)
+
+    def _tts_batches(self, text_input: List[str], batch_size: int, *,
+                     speed, denoise, speaker_id, vowelizer, pitch_mul,
+                     pitch_add, return_mel, out_int16):
         # global length sort before batching, so batches are homogeneous in
         # length and bucket padding stays small
         order = sorted(range(len(text_input)),
