@@ -25,8 +25,8 @@ Phases, one line each (and a table for the kernel checks):
 3. kernel checks: resblock1 wide (C 256/128/64) and narrow (C 64/32),
    k 3/7/11, dilations 1/3/5, f32 (the 3xTF32 tensor-core kernels) and
    bf16 (the bf16 tensor-core kernels), at the main path's widths and
-   stage lengths (each generator call's frames x the stage's samples per
-   frame, batch 8), and once 3 rows shorter, which no tile divides, against
+   stage lengths (each generator call's rows, and its frames x the stage's
+   samples per frame), and once 3 rows shorter, which no tile divides, against
    `resblock1_plain`: f32 with TF32 off; bf16 against the plain version run
    in f32 on the same bf16 inputs. At the main path's lengths: the
    kernel's ms, the plain version's ms (same dtype), the bound (f32: the
@@ -37,7 +37,9 @@ Phases, one line each (and a table for the kernel checks):
    random weights from seed 0 with the duration head biased by +2.0; three
    tts() calls timed on the host clock, the first two re-warming the
    allocator (phase 3 empties its cache), the launch counters set to 0
-   just before the third and read just after. Then one more tts() under
+   just before the third and read just after; the generator calls are the
+   length groups (`vocoder.hifigan.length_groups`) of each batch's rows,
+   27 wide + 3 narrow launches each. Then one more tts() under
    torch.profiler (CUDA activity): the ResBlock kernels' device ms, the 8
    other device ops with the most device time, and the device's idle
    share of that call's wall
@@ -635,47 +637,50 @@ def _launch(rb, name, x, w1, b1, w2, b2, k):
         return rb.resblock1(x, w1, b1, w2, b2, k, DILATIONS)
 
 
-def phase_kernel_checks(frames: list[int]) -> dict:
-    """Every variant, width, kernel size and dtype at the stage lengths of
-    the main path's generator calls (`frames` mel frames each; a length
-    that recurs is timed once and counted for each call), and once at a
-    length 3 rows short of the first, which no tile divides."""
+def phase_kernel_checks(calls: list[tuple[int, int]]) -> dict:
+    """Every variant, width, kernel size and dtype at the rows and stage
+    lengths of the main path's generator calls (`calls`: (rows, mel
+    frames) each; a shape that recurs is timed once and counted for each
+    call), and once at the first's rows and a length 3 rows short of its
+    own, which no tile divides."""
     from tts_arabic_torch.ops import resblock as rb
     gen = torch.Generator(device="cuda").manual_seed(0)
     summary = {}
     set_tf32(False)     # f32 plain convs in full f32, not TF32
-    log(f"[3 kernel checks] B={BATCH}, T = stage length of the main path's "
-        f"generator calls ({' and '.join(map(str, frames))} frames), and "
-        "of the first less 3 rows; err = max|kernel - plain| / max|plain|; "
+    log(f"[3 kernel checks] B, T = rows and stage length of the main "
+        f"path's generator calls ({', '.join(f'{b} x {f}' for b, f in calls)}"
+        " rows x frames), and of the first less 3 rows; err = max|kernel - "
+        "plain| / max|plain|; "
         "f32: the 3xTF32 tensor-core kernels, bound_ms their operations at "
         f"{RESBLOCK_F32_FLOPS / 1e12:.0f} TFLOP/s (cc_ms: at the CUDA cores' "
         f"{PEAK_FLOPS[torch.float32] / 1e12:.0f}); bf16: the bf16 "
         "tensor-core kernels; share = bound_ms / ms")
-    log(f"    {'variant':17} {'C':>4} {'k':>3} {'dtype':>5} {'T':>7} "
-        f"{'err':>9} {'tol':>7} {'ms':>9} {'plain_ms':>9} {'bound_ms':>9} "
-        f"{'cc_ms':>9} {'share':>6}")
+    log(f"    {'variant':17} {'C':>4} {'k':>3} {'dtype':>5} {'B':>3} "
+        f"{'T':>7} {'err':>9} {'tol':>7} {'ms':>9} {'plain_ms':>9} "
+        f"{'bound_ms':>9} {'cc_ms':>9} {'share':>6}")
     variants = ([("resblock1_wide", C) for C in WIDE_CHANNELS]
                 + [("resblock1_narrow", C) for C in NARROW_CHANNELS])
     for name, C in variants:
         for k in KERNEL_SIZES:
             for dtype in (torch.float32, torch.bfloat16):
                 dname = str(dtype).removeprefix("torch.")[:5]
-                T = STAGE_T[C] * frames[0] - 3
-                _, _, rel = _rel_err(rb, name, C, k, T, dtype, gen)
-                log(f"    {name:17} {C:>4} {k:>3} {dname:>5} {T:>7} "
+                B, T = calls[0][0], STAGE_T[C] * calls[0][1] - 3
+                _, _, rel = _rel_err(rb, name, C, k, T, dtype, gen, B)
+                log(f"    {name:17} {C:>4} {k:>3} {dname:>5} {B:>3} {T:>7} "
                     f"{rel:>9.2e} {TOL[dtype]:>7.0e}")
-                for f, n_calls in collections.Counter(frames).items():
+                for (B, f), n_calls in collections.Counter(calls).items():
                     T = STAGE_T[C] * f
-                    args, err, rel = _rel_err(rb, name, C, k, T, dtype, gen)
+                    args, err, rel = _rel_err(rb, name, C, k, T, dtype, gen,
+                                              B)
                     ms = cuda_ms(lambda: _launch(rb, name, *args, k))
                     plain_ms = cuda_ms(lambda: rb.resblock1_plain(
                         *args, k, DILATIONS))
-                    t_ops, t_bytes = bound(C, k, T, dtype)
+                    t_ops, t_bytes = bound(C, k, T, dtype, B)
                     b_ms = max(t_ops, t_bytes)
-                    cc = (f"{cuda_core_ms(C, k, T):>9.3f}"
+                    cc = (f"{cuda_core_ms(C, k, T, B):>9.3f}"
                           if dtype == torch.float32 else f"{'-':>9}")
-                    log(f"    {name:17} {C:>4} {k:>3} {dname:>5} {T:>7} "
-                        f"{rel:>9.2e} {TOL[dtype]:>7.0e} {ms:>9.3f} "
+                    log(f"    {name:17} {C:>4} {k:>3} {dname:>5} {B:>3} "
+                        f"{T:>7} {rel:>9.2e} {TOL[dtype]:>7.0e} {ms:>9.3f} "
                         f"{plain_ms:>9.3f} {b_ms:>9.3f} {cc} "
                         f"{100 * b_ms / ms:>5.1f}%")
                     # the JSON record: the main path's own launches (bf16,
@@ -750,8 +755,10 @@ def phase_main_path(pipe, prompts: list[str], shapes: list[tuple],
     last is the main path's run, with the launch counters set to 0 just
     before it and read just after. -> (its launches, its real-time
     factor)."""
+    from tts_arabic_torch.infer.pipeline import _pick_mel_bucket
     from tts_arabic_torch.ops import mas as mas_ops
     from tts_arabic_torch.ops import resblock as rb
+    from tts_arabic_torch.vocoder.hifigan import length_groups
     torch.cuda.reset_peak_memory_stats()
     walls = []
     for _ in range(N_TIMED - 1):
@@ -779,10 +786,18 @@ def phase_main_path(pipe, prompts: list[str], shapes: list[tuple],
         if w.size != m.shape[1] * hop:
             raise AssertionError(f"prompt {i}: {w.size} samples, expected "
                                  f"{m.shape[1]} frames x {hop}")
-    n_batches = -(-len(prompts) // BATCH)
-    if len(calls) != n_batches or calls != shapes:
-        raise AssertionError(f"generator calls {calls}, expected {n_batches}"
-                             f" (one per batch) of the warm run's {shapes}")
+    # tts()'s batches (the global sort by characters), each vocoded in the
+    # length groups of its rows' frames
+    order = sorted(range(len(prompts)), key=lambda i: -len(prompts[i]))
+    lens = [mels[i].shape[1] for i in order]
+    groups = [length_groups(b, _pick_mel_bucket(max(b)))
+              for b in (lens[k: k + BATCH]
+                        for k in range(0, len(lens), BATCH))]
+    want = sorted((len(rows), f) for g in groups for rows, f in g)
+    if sorted(c[:2] for c in calls) != want or calls != shapes:
+        raise AssertionError(f"generator calls {calls}, expected {want} (the "
+                             f"length groups of each batch) as in the warm "
+                             f"run's {shapes}")
     cfg = pipe.vocoder_config
     per_call = {"resblock1_wide": 0, "resblock1_narrow": 0}
     for i in range(len(cfg.upsample_rates)):
@@ -2512,10 +2527,15 @@ def phase_int8(smi: str, bf16_rtf: float, tmp: pathlib.Path) -> dict:
     records = []
     with oracle_checked(records):
         pipe.tts(prompts, **kw)
+    # the 54 MRF convs in each generator call (a length group), the
+    # decoder FFN's 2 a layer in each batch's one decode
+    n_batches = -(-len(prompts) // BATCH)
+    want = len(calls) * 54 + n_batches * 2 * ffn
     bad = [r for r in records if not r[-1]]
-    if bad or len(records) != len(calls) * (54 + 2 * ffn):
+    if bad or len(records) != want:
         raise AssertionError(f"int8 convs vs the float64 oracle: "
-                             f"{len(records)} calls, unequal {bad[:4]}")
+                             f"{len(records)} calls (expected {want}), "
+                             f"unequal {bad[:4]}")
     shapes = sorted({r[:4] for r in records})
     kern = [pipe.tts_single(p, denoise=0.005) for p in prompts[:2]]
     with mock.patch.object(hifigan, "resblock1", _plain_f32):
@@ -3711,16 +3731,19 @@ def phase_fastpitch_bundle(smi: str, tmp: pathlib.Path) -> dict:
     of the same weights."""
     from tts_arabic_torch.apps import export_serving as es
     from tts_arabic_torch.eval import flops
+    from tts_arabic_torch.infer.pipeline import _pick_mel_bucket
     from tts_arabic_torch.ops import resblock as rb
     from tts_arabic_torch.runtime.profiling import benchmark
     prompts = load_prompts(N_PROMPTS)
     pipe = make_pipe(torch.bfloat16)
     batches = _live_batches(prompts, lambda t: len(pipe.model.tokenize(t)))
-    with generator_calls() as calls:
-        live = pipe.tts(prompts, batch_size=BATCH, denoise=0.005,
-                        out_int16=True)
+    live = pipe.tts(prompts, batch_size=BATCH, denoise=0.005, out_int16=True)
     text_buckets = sorted({tb for _, tb in batches})
-    mel_buckets = sorted({c[1] for c in calls})
+    # each live batch's mel bucket, from its longest row (the live path
+    # vocodes in length groups; a wave program, the whole batch at it)
+    buckets = [_pick_mel_bucket(max(len(live[i]) for i in rows)
+                                // pipe.hop_length) for rows, _ in batches]
+    mel_buckets = sorted(set(buckets))
     ckpt = save_checkpoint(pipe, tmp)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3752,7 +3775,7 @@ def phase_fastpitch_bundle(smi: str, tmp: pathlib.Path) -> dict:
     work = sum(BATCH * (flops.fastpitch_encode_flops(cfg, tb)
                         + flops.fastpitch_decode_flops(cfg, tbx, mb)
                         + flops.hifigan_flops(mb, pipe.vocoder_config))
-               for (_, tb), mb in zip(batches, [c[1] for c in calls]))
+               for (_, tb), mb in zip(batches, buckets))
     prof = profiled(lambda: _serve(bundle, prompts, batches))
     peak = flops.chip_peak_flops(0, "bf16")
     busy = prof[2] if prof else float("nan")
@@ -4909,7 +4932,7 @@ def main() -> int:
         raise AssertionError(f"{len(prompts)} prompts, expected {N_PROMPTS}")
     pipe = make_pipe(torch.bfloat16)
     shapes = warm_run(pipe, prompts)
-    summary = phase_kernel_checks([f for _, f, _ in shapes])
+    summary = phase_kernel_checks([(b, f) for b, f, _ in shapes])
     launches, bf16_rtf = phase_main_path(
         pipe, prompts, shapes, sum(s["ms"] for s in summary.values()), smi)
     profile_tts(pipe, prompts, smi)

@@ -9,14 +9,17 @@ Execution model, as in the JAX package:
 1. tokenize on the host; sort by length; cut into batches
 2. pad token ids to a TEXT bucket (multiple of 16) and batch rows to the
    batch size -> encode in float32 (durations decide output lengths)
-3. one scalar fetch per batch: the predicted mel lengths pick a MEL bucket
+3. one host read of the predicted mel lengths: each batch's longest picks
+   its MEL bucket
 4. length-regulate + decoder + mel projection at that bucket, then HiFi-GAN
    and the spectral denoiser, in `compute_dtype` (the denoiser in f32)
 5. crop to the true lengths, unsort, return numpy
 
-The bucket padding is kept exactly: the vocoder's receptive field and the
-denoiser's reflect pad see the LOG_MEL_PAD frames past each utterance, so
-tail samples depend on it.
+HiFi-GAN vocodes a batch's rows in groups of similar length
+(`vocoder.hifigan.length_groups`), each at its longest row's frames plus
+the receptive field, not the whole batch at the bucket: an utterance's
+own samples, denoised, see the LOG_MEL_PAD frames past it only that far,
+so they are the bucket's up to the arithmetic of another shape.
 
 `stream()` decodes the whole mel once and vocodes it window by window
 (overlap-discard), so the first audio is ready after one window.
@@ -66,7 +69,8 @@ from ..runtime.config import get_basic_config
 from ..runtime.device import resolve_device
 from ..runtime.profiling import count, enabled, span
 from ..vocoder import denoiser as denoiser_mod
-from ..vocoder.hifigan import Generator, HiFiGANConfig, chunked_vocode
+from ..vocoder.hifigan import (VOCODE_MARGIN, Generator, HiFiGANConfig,
+                               chunked_vocode, grouped_vocode, length_groups)
 
 LOG_MEL_PAD = float(np.log(1e-5))  # log-mel floor = silence padding value
 
@@ -131,6 +135,15 @@ def _output(wave: torch.Tensor, out_int16) -> torch.Tensor:
     if out_int16:
         return (torch.clamp(wave, -1.0, 1.0) * 32767.0).to(torch.int16)
     return wave
+
+
+def _counted(generator):
+    """`generator`, each call counting its rows x frames as
+    `frames_vocoded` in the open span."""
+    def call(mel):
+        count(frames_vocoded=mel.shape[0] * mel.shape[1])
+        return generator(mel)
+    return call
 
 
 @contextlib.contextmanager
@@ -397,6 +410,21 @@ class FastPitchTTS:
         if self.mesh is not None:
             x = all_reduce(x, self.mesh, DATA_AXIS, op="max")
         return x.tolist()
+
+    def _host_lengths(self, encs) -> tuple:
+        """Of encodes' outputs, in one host read: each one's longest
+        predicted mel length, over every rank on a mesh (the bucket's), and
+        the predicted lengths of this rank's rows. -> ([longest], [[row
+        lengths]])"""
+        maxes = torch.stack([e["dec_len_max"] for e in encs])
+        if self.mesh is not None:
+            maxes = all_reduce(maxes, self.mesh, DATA_AXIS, op="max")
+        flat = torch.cat([maxes] + [e["dec_lens"] for e in encs]).tolist()
+        rows, k = [], len(encs)
+        for e in encs:
+            rows.append(flat[k: k + len(e["dec_lens"])])
+            k += len(e["dec_lens"])
+        return flat[: len(encs)], rows
 
     def _gather(self, x):
         """Every rank's rows of x, in rank order (None stays None)."""
@@ -704,7 +732,11 @@ class FastPitch2Wave:
 
     def _wave_fn(self, enc_out, durations, denoise_strength, pace, *,
                  max_frames, use_denoiser, return_mel=False,
-                 out_int16=False):
+                 out_int16=False, frame_lens=None):
+        """Decode at `max_frames`, vocode, denoise. Given the rows' own
+        frame counts on the host (`frame_lens`), HiFi-GAN vocodes the rows
+        in the groups `length_groups` cuts from them; without them (the
+        warm-up, an exported program) the whole batch at `max_frames`."""
         m = self.model
         with span("tts.decode", device=self.device):
             if enabled():
@@ -724,7 +756,13 @@ class FastPitch2Wave:
                     mel, core=192, overlap=32)
         else:
             with span("tts.vocode", device=self.device):
-                wave = chunked_vocode(self._vocode, mel).float()
+                generator = self._vocode
+                if enabled():
+                    generator = _counted(generator)
+                groups = ([(list(range(mel.shape[0])), max_frames)]
+                          if frame_lens is None
+                          else length_groups(frame_lens, max_frames))
+                wave = grouped_vocode(generator, mel, groups)
             if use_denoiser:
                 with span("tts.denoise", device=self.device):
                     wave = denoiser_mod.denoise(wave, self.bias_spec,
@@ -744,22 +782,26 @@ class FastPitch2Wave:
                                    pad_to, speed, shard=True)
 
     def _dispatch_wave(self, enc_handles, speed, denoise, return_mel,
-                       out_int16=False, dec_len_max=None):
+                       out_int16=False, dec_len_max=None, frame_lens=None):
         """Mel bucket from the batch's longest predicted length, then decode
-        + vocode (+ denoise) at that bucket; the wave is cropped on the
-        device to the real lengths rounded up to _CROP_FRAMES, so the copy
-        to the host skips most bucket padding. On a mesh `dec_len_max` is
-        the batch's over every rank, and this rank's rows are gathered."""
+        at that bucket, vocode in groups of the rows' lengths `frame_lens`
+        (+ denoise at the bucket); the wave is cropped on the device to the
+        real lengths rounded up to _CROP_FRAMES, so the copy to the host
+        skips most bucket padding. Without `dec_len_max` both are read in
+        one host read. On a mesh `dec_len_max` is the batch's over every
+        rank, `frame_lens` this rank's rows', and this rank's rows are
+        gathered."""
         m = self.model
         enc, inverse, _ = enc_handles
         if dec_len_max is None:
-            dec_len_max = m._global_max(enc["dec_len_max"])
+            (dec_len_max,), (frame_lens,) = m._host_lengths([enc])
         bucket = _pick_mel_bucket(dec_len_max)
         with _exact_f32():
             wave, mel, mel_lens = self._wave_fn(
                 enc["enc_out"], enc["dur_pred"], float(denoise),
                 float(speed), max_frames=bucket, use_denoiser=denoise > 0,
-                return_mel=return_mel, out_int16=out_int16)
+                return_mel=return_mel, out_int16=out_int16,
+                frame_lens=frame_lens)
         frames = min(_round_up(dec_len_max, self._CROP_FRAMES), bucket)
         wave = wave[:, : frames * self.hop_length]
         if mel is not None:
@@ -815,7 +857,8 @@ class FastPitch2Wave:
                                         use_denoiser), out_int16)
 
     def stream(self, utterance: str, chunk_frames: int = 128,
-               overlap: int = 16, speed: float = 1.0, denoise: float = 0.005,
+               overlap: int = VOCODE_MARGIN, speed: float = 1.0,
+               denoise: float = 0.005,
                speaker_id: int = 0, vowelizer: Optional[str] = None,
                pitch_mul: float = 1.0, pitch_add: float = 0.0,
                out_int16: bool = False):
@@ -826,11 +869,10 @@ class FastPitch2Wave:
 
         The chunks concatenate to `tts_single`'s wave to float tolerance:
         the whole mel is decoded once in the compute dtype, and each window
-        of `chunk_frames + 2 * overlap` frames carries `overlap` >= the
-        HiFi-GAN receptive field (~13 frames) + the denoiser's STFT context
-        (4 frames); its core is cut at the window's own offset. Window
-        starts are whole frames, so the denoiser's STFT grid lines up with
-        the full wave's.
+        of `chunk_frames + 2 * overlap` frames carries `overlap` >= HiFi-GAN's
+        reach with the denoiser's STFT (VOCODE_MARGIN); its core is cut at
+        the window's own offset. Window starts are whole frames, so the
+        denoiser's STFT grid lines up with the full wave's.
 
         The first window is vocoded from a mel decoded at
         STREAM_SPEC_FRAMES' bucket before the utterance's length reaches
@@ -886,9 +928,14 @@ class FastPitch2Wave:
                mel_buckets=(256, 512, 1024), denoise: float = 0.005,
                return_mel: bool = False, out_int16: bool = False):
         """Run each (batch size, text bucket, mel bucket) once on zero
-        tokens, so the first request pays no kernel build or cuDNN
-        algorithm search; then capture the one-row encode and decoder
-        graphs (FastPitchTTS.capture_graphs) in the decode dtype. On a mesh
+        tokens, so the first request pays no kernel build; then capture the
+        one-row encode and decoder graphs (FastPitchTTS.capture_graphs) in
+        the decode dtype. With no host lengths HiFi-GAN vocodes each whole
+        batch at its bucket, while a request's rows are vocoded in length
+        groups (`vocoder.hifigan.length_groups`) at shapes of their own,
+        which the warm-up does not meet: the first call at such a shape
+        pays cuDNN's set-up of its convolutions (about 0.1 s more for the
+        first 16 prompts at batch 8 on an H100, in bf16). On a mesh
         a batch size rounds up to the data axis and each rank runs its
         share of the rows, as a real request."""
         m = self.model
@@ -940,17 +987,17 @@ class FastPitch2Wave:
                        key=lambda i: -len(text_input[i]))
         bs = max(batch_size, 1)
         batches = [order[k: k + bs] for k in range(0, len(order), bs)]
-        # every encode is queued before the one host fetch of the bucket
-        # scalars; every wave is queued before the first copy back
+        # every encode is queued before the one host fetch of the batches'
+        # lengths; every wave is queued before the first copy back
         encs = [self._dispatch_encode([text_input[i] for i in idxs], speed,
                                       speaker_id, vowelizer, pitch_mul,
                                       pitch_add, pad_to=bs)
                 for idxs in batches]
-        maxes = self.model._global_max(
-            torch.stack([e[0]["dec_len_max"] for e in encs]))
+        maxes, lens = self.model._host_lengths([e[0] for e in encs])
         handles = [self._dispatch_wave(e, speed, denoise, return_mel,
-                                       out_int16, dec_len_max=int(mx))
-                   for e, mx in zip(encs, maxes)]
+                                       out_int16, dec_len_max=mx,
+                                       frame_lens=rows)
+                   for e, mx, rows in zip(encs, maxes, lens)]
         waves = [None] * len(text_input)
         mels = [None] * len(text_input)
         for idxs, h in zip(batches, handles):
