@@ -41,6 +41,7 @@ from ..models.layers import init_weights
 from ..models.tacotron2 import Tacotron2, Tacotron2Config, init_tacotron2
 from ..runtime.checkpoint import load_states
 from ..runtime.device import resolve_device
+from ..runtime.profiling import count, enabled, span
 from ..vocoder import denoiser as denoiser_mod
 from ..vocoder.hifigan import Generator, HiFiGANConfig, chunked_vocode
 from .pipeline import (LOG_MEL_PAD, TEXT_BUCKET, _calibration_texts,
@@ -295,8 +296,8 @@ class Tacotron2TTS:
 
     def _runner(self, batch: int, text_len: int):
         """The graph replay of the blocks of a segment at this shape, in the
-        signature of `Tacotron2.run_segment`; None when no graph was
-        captured for it."""
+        signature of `Tacotron2.run_segment` (it returns the blocks run);
+        None when no graph was captured for it."""
         entry = self._graphs.get(self._graph_key(batch, text_len))
         if entry is None:
             return None
@@ -312,12 +313,14 @@ class Tacotron2TTS:
                 val.copy_(carry[key])
             for val in s_bufs.values():
                 val.zero_()
-            self.graph_replays += self.model.run_segment(
+            blocks = self.model.run_segment(
                 s_carry, s_enc, s_bufs, s_masks, s_limit, block=graph.replay)
+            self.graph_replays += blocks
             for key, val in carry.items():
                 val.copy_(s_carry[key])
             for key, val in bufs.items():
                 val.copy_(s_bufs[key][:, : val.shape[1]])
+            return blocks
         return run
 
     # -- the decode ----------------------------------------------------------
@@ -615,20 +618,27 @@ class Tacotron2Wave:
             wave = self._vocode_fn(mel, float(denoise),
                                    use_denoiser=denoise > 0,
                                    out_int16=out_int16)
-        hop = self.hop_length
-        frames = _round_up(int(new_lens.max()), self._CROP_FRAMES)
-        wave = wave[:, : frames * hop].cpu().numpy()
-        return [wave[i, : new_lens[i] * hop] for i in inverse]
+        with span("tts.collect"):
+            if enabled():
+                count(frames_kept=int(new_lens[inverse].sum()))
+            hop = self.hop_length
+            frames = _round_up(int(new_lens.max()), self._CROP_FRAMES)
+            wave = wave[:, : frames * hop].cpu().numpy()
+            return [wave[i, : new_lens[i] * hop] for i in inverse]
 
     def _vocode_fn(self, mel, strength: float, *, use_denoiser: bool,
                    out_int16=False):
         """HiFi-GAN in the compute dtype (chunked when long), then the
         denoiser in f32 and the output format."""
-        if self.compute_dtype is not None:
-            mel = mel.to(self.compute_dtype)
-        wave = chunked_vocode(self._vocode, mel).float()
+        with span("tts.vocode", device=self.device):
+            if enabled():
+                count(frames_vocoded=mel.shape[0] * mel.shape[1])
+            if self.compute_dtype is not None:
+                mel = mel.to(self.compute_dtype)
+            wave = chunked_vocode(self._vocode, mel).float()
         if use_denoiser:
-            wave = denoiser_mod.denoise(wave, self.bias_spec, strength)
+            with span("tts.denoise", device=self.device):
+                wave = denoiser_mod.denoise(wave, self.bias_spec, strength)
         return _output(wave, out_int16)
 
     def _dispatch_vocode(self, mels, denoise, out_int16=False):
@@ -827,16 +837,30 @@ class Tacotron2Wave:
         out_int16: False (f32) | True (int16) | "mulaw" (uint8 codes),
         converted on the device. speaker_id: a scalar, or one per
         utterance of a list. generator: draws the prenet dropout masks of
-        every decode (default: a fresh one seeded 0 per decode)."""
+        every decode (default: a fresh one seeded 0 per decode).
+
+        Spans (`runtime.profiling`): `tts` a call; per batch of the device
+        path `tts.frontend` (count `utterances`), `tts.encode`,
+        `tts.decode` (`decode_steps`, `rows`, `text_len`), `tts.vocode`
+        (`frames_vocoded`: rows x bucket), `tts.denoise` and `tts.collect`
+        (`frames_kept`), the names `FastPitch2Wave.tts()` records."""
         kw = dict(speed=speed, denoise=denoise, vowelizer=vowelizer,
                   postprocess_mel=postprocess_mel, return_mel=return_mel,
                   out_int16=out_int16, generator=generator)
-        if isinstance(text_input, str):
-            if np.ndim(speaker_id) != 0:  # a length-1 sequence
-                speaker_id = int(_speaker_array(speaker_id, 1)[0])
-            return self.tts_single(text_input, speaker_id=speaker_id, **kw)
-        if np.ndim(speaker_id) != 0:
-            speaker_id = _speaker_array(speaker_id, len(text_input))
+        with span("tts"):
+            if isinstance(text_input, str):
+                if np.ndim(speaker_id) != 0:  # a length-1 sequence
+                    speaker_id = int(_speaker_array(speaker_id, 1)[0])
+                return self.tts_single(text_input, speaker_id=speaker_id,
+                                       **kw)
+            if np.ndim(speaker_id) != 0:
+                speaker_id = _speaker_array(speaker_id, len(text_input))
+            return self._tts_batches(text_input, speaker_id, batch_size,
+                                     **kw)
+
+    def _tts_batches(self, text_input: List[str], speaker_id,
+                     batch_size: int, *, speed, denoise, vowelizer,
+                     postprocess_mel, return_mel, out_int16, generator):
         m = self.model
         # a global length sort, so each batch's decode (which runs until its
         # longest row stops) and its padding waste less; decodes run at
@@ -857,9 +881,12 @@ class Tacotron2Wave:
                     waves[i] = w
             in_flight = []
             for idxs in batches:
-                tokens_list, do_post = m._prepare_tokens(
-                    [text_input[i] for i in idxs], vowelizer,
-                    postprocess_mel)
+                with span("tts.frontend"):
+                    if enabled():
+                        count(utterances=len(idxs))
+                    tokens_list, do_post = m._prepare_tokens(
+                        [text_input[i] for i in idxs], vowelizer,
+                        postprocess_mel)
                 in_flight.append((idxs, self._dispatch_fused(
                     tokens_list, do_post, _subset_speakers(speaker_id, idxs),
                     denoise, pad_to=bs, out_int16=out_int16,

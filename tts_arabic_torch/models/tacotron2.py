@@ -49,6 +49,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..runtime.profiling import count, enabled, span
 from .layers import dropout, init_weights, sequence_mask
 
 _NEG_INF = -1e9
@@ -692,19 +693,31 @@ class Tacotron2(nn.Module):
         Returns dict: mel [B, max_steps, n_mels] (zeros past each length),
         mel_postnet, mel_lens [B] int32, alignments [B, max_steps, T_txt],
         gates [B, max_steps], in `dtype`. `runner`: as in
-        `decode_segment`."""
+        `decode_segment`, returning the blocks it ran.
+
+        Spans (`runtime.profiling`): `tts.encode`, and `tts.decode` around
+        the blocks and the postnet, counting `decode_steps` (the blocks
+        run x DECODE_BLOCK, known on the host without a device read),
+        `rows` and `text_len` (the padded batch's shape)."""
         B, T_txt = tokens.shape
+        dev = tokens.device
         if token_lens is None:
             token_lens = torch.full((B,), T_txt, dtype=torch.int32)
         max_steps = max_steps or self.config.decoder_max_step
-        enc = self.encode_infer(tokens, token_lens, speaker_ids, dtype=dtype)
-        carry = self.init_decode_carry(enc["memory"])
-        bufs = self.decode_buffers(enc["memory"], max_steps)
-        masks = self.prenet_masks(max_steps, B, tokens.device, generator)
-        limit = torch.full((1,), max_steps, dtype=torch.long,
-                           device=tokens.device)
-        (runner or self.run_segment)(carry, enc, bufs, masks, limit)
-        return self.finish_infer(bufs, carry["lengths"], max_steps)
+        with span("tts.encode", device=dev):
+            enc = self.encode_infer(tokens, token_lens, speaker_ids,
+                                    dtype=dtype)
+        with span("tts.decode", device=dev):
+            carry = self.init_decode_carry(enc["memory"])
+            bufs = self.decode_buffers(enc["memory"], max_steps)
+            masks = self.prenet_masks(max_steps, B, dev, generator)
+            limit = torch.full((1,), max_steps, dtype=torch.long, device=dev)
+            blocks = (runner or self.run_segment)(carry, enc, bufs, masks,
+                                                  limit)
+            if enabled() and blocks is not None:
+                count(decode_steps=blocks * DECODE_BLOCK, rows=B,
+                      text_len=T_txt)
+            return self.finish_infer(bufs, carry["lengths"], max_steps)
 
     def finish_infer(self, bufs: dict, lengths: torch.Tensor,
                      max_steps: int) -> dict:
