@@ -324,6 +324,18 @@ Phases, one line each (and a table for the kernel checks):
    (data x model) mesh against the one-device infer (rtol 2e-4, atol
    2e-5), its all-reduces a call
    (12); the phase's seconds
+23. the fused Tacotron2 decode step (`ops.tacotron2_step`,
+   `csrc/tacotron2_step.cu`) at the benchmark's configuration (40
+   speakers, bf16) on seeded weights and encoder outputs: at [16, 240]
+   (the Tacotron2 cell's batch) and [1, 32] (a stream's), one decode
+   block recorded as a CUDA graph with the kernels and one with the plain
+   step (`_predicated_step`, the ATen path), each replayed until the
+   segment ends, us a step by CUDA events against the frozen bound
+   (`port_bench/yardstick_tacotron2.decode_step_bound_s`); the kernels'
+   launches a step as the card counts their runs (each of the five once a
+   step, the block's preparation and pack once a block), their device
+   time by name under torch.profiler; mel and alignment of the two within
+   T2_STEP_TOL, equal lengths
 
 Then nvidia-smi's line again, the smoke's seconds, the kernels' JSON
 record (for each ResBlock variant its ms, plain_ms and bound_ms summed
@@ -347,7 +359,9 @@ phase 21's counted tts(), and for the ResBlocks `tacotron2_gate_ms`,
 timed in phase 21; `sp_launches_per_rank`, `dp_serving_launches_per_rank`
 and `dp_train_launches_per_rank`, each kernel's launches on each rank, as
 counted around phase 22's bf16 `sp_vocode`, its counted DP tts() and its
-DP training steps), and last
+DP training steps; then the fused decode step's record, phase 23's
+`tacotron2_step` ms, plain_ms and bound_ms a step at the cell's shape and
+its launches a step), and last
 the result line. Any
 failure raises and the exit code is not 0; without a CUDA device the
 script exits 1 before printing any result.
@@ -357,6 +371,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import dataclasses
 import json
 import math
 import pathlib
@@ -1973,6 +1988,37 @@ def t2_profile_decode(pipe, batch: tuple, steps: int) -> dict:
                 ops_step=n_ops / steps, top=by_name.most_common(8))
 
 
+def t2_runs():
+    """The fused decode step's state before a counted Tacotron2 decode: the
+    card's run counts of its kernels and the host's launched steps."""
+    from tts_arabic_torch.ops import tacotron2_step as fused
+    return fused.device_runs("cuda"), fused.LAUNCHES["tacotron2_step"]
+
+
+def t2_fused_check(label: str, before, replays: int, packed: bool) -> str:
+    """Raises unless every step of the decodes since `before` (`t2_runs`)
+    ran on the fused step's kernels, counted on the card: each of a step's
+    five kernels once a step of the blocks the host launched (LAUNCHES) and
+    of the `replays` block graphs (DECODE_BLOCK each), a positive multiple
+    of DECODE_BLOCK; the block's preparation once a block, and the bf16
+    pack too when `packed`. -> the log's words."""
+    from tts_arabic_torch.models import tacotron2 as t2
+    from tts_arabic_torch.ops import tacotron2_step as fused
+    runs, launched = before
+    host = fused.LAUNCHES["tacotron2_step"] - launched
+    steps = host + replays * t2.DECODE_BLOCK
+    blocks = steps // t2.DECODE_BLOCK
+    ran = (fused.device_runs("cuda") - runs).tolist()
+    want = [steps] * fused.KERNELS_PER_STEP + [blocks, blocks * packed]
+    if steps <= 0 or steps % t2.DECODE_BLOCK or ran != want:
+        raise AssertionError(
+            f"{label}: the card ran the fused step's kernels "
+            f"{dict(zip(fused.RUNS, ran))}, expected {want} for {host} "
+            f"launched steps and {replays} block replays")
+    return (f"fused steps {steps} ({host} launched, {replays} replayed "
+            f"blocks) = each step kernel's runs on the card")
+
+
 def stage_kernel_times(calls: list, dtype, seed: int) -> tuple[dict, list]:
     """The ResBlock kernels in `dtype` at the stage shapes of generator
     calls (`calls`: their mel shapes; a shape that recurs is timed once and
@@ -2053,11 +2099,14 @@ def phase_tacotron2(smi: str) -> dict:
         rb.reset_launches()
         mas_ops.reset_launches()
         replays = m.graph_replays
+        before = t2_runs()
         t0 = time.perf_counter()
         waves = pipe.tts(prompts, **kw)
         walls.append(time.perf_counter() - t0)
         launches = dict(rb.LAUNCHES)
     replays = m.graph_replays - replays
+    fused_words = t2_fused_check("Tacotron2 f32 tts()", before, replays,
+                                 packed=False)
     want = {"resblock1_wide": 27 * len(batches),
             "resblock1_narrow": 3 * len(batches)}
     if launches != want or mas_ops.LAUNCHES["mas"]:
@@ -2085,9 +2134,9 @@ def phase_tacotron2(smi: str) -> dict:
         f"{capture_s:.2f} s, {graph_mib:.1f} MiB; warmup()'s fused calls "
         f"{warm_s:.2f} s | tts() {audio_s:.2f} s of "
         f"audio: walls {', '.join(f'{w:.3f}' for w in walls)} s = "
-        f"{audio_s / walls[-1]:.1f}x real time | {replays} block replays | "
-        f"generator calls (mel shapes) {calls} | launches {launches}, mas 0 "
-        f"| frames per prompt {frames} | {smi}")
+        f"{audio_s / walls[-1]:.1f}x real time | {replays} block replays, "
+        f"{fused_words} | generator calls (mel shapes) {calls} | launches "
+        f"{launches}, mas 0 | frames per prompt {frames} | {smi}")
 
     # the decode alone, per step, graphed and eager
     ragged_batch = batches[-1]
@@ -2238,12 +2287,17 @@ def phase_tacotron2(smi: str) -> dict:
     m.capture_graphs((1,), (-(-n_ids // 16) * 16,))
     ref = pipe.tts_single(text, denoise=0.005, postprocess_mel=False)
     firsts, fulls = [], []
-    for _ in range(3):
+    for i in range(3):
+        replays, before = m.graph_replays, t2_runs()
         t0 = time.perf_counter()
         gen = pipe.stream(text, denoise=0.005)
         chunks = [next(gen)]
         firsts.append(time.perf_counter() - t0)
         chunks += list(gen)
+        if i == 0:
+            stream_words = t2_fused_check(
+                "Tacotron2 stream()", before, m.graph_replays - replays,
+                packed=False)
         t0 = time.perf_counter()
         pipe.tts_single(text, denoise=0.005, postprocess_mel=False)
         fulls.append(time.perf_counter() - t0)
@@ -2257,7 +2311,7 @@ def phase_tacotron2(smi: str) -> dict:
         f"(postprocess_mel=False)| {err:.2e} | first chunk "
         f"{min(firsts) * 1e3:.1f} ms against the whole call "
         f"{min(fulls) * 1e3:.1f} ms (min of 3, both replaying the graphs) "
-        f"| {smi}")
+        f"| the first stream's {stream_words} | {smi}")
     del pipe, m, waves, fused, host, mels
     torch.cuda.empty_cache()
     return launches, audio_s / walls[-1], timed
@@ -3825,11 +3879,15 @@ def phase_tacotron2_bundle(smi: str, tmp: pathlib.Path) -> dict:
     bundle = es.Tacotron2ServingBundle(out)
     _serve(bundle, prompts, batches)                # loads the programs
     rb.reset_launches()
+    before = t2_runs()
     t0 = time.perf_counter()
     got = _serve(bundle, prompts, batches)
     torch.cuda.synchronize()
     bundle_s = time.perf_counter() - t0
     launches = dict(rb.LAUNCHES)
+    # the exported decode casts its weights with ATen ops, then the op
+    fused_words = t2_fused_check("Tacotron2 bundle", before, 0,
+                                 packed=False)
     want = {"resblock1_wide": 27 * len(batches),
             "resblock1_narrow": 3 * len(batches)}
     if launches != want:
@@ -3845,7 +3903,8 @@ def phase_tacotron2_bundle(smi: str, tmp: pathlib.Path) -> dict:
         f"export {export_s:.1f} s, {len(list(out.glob('*.pt2')))} programs, "
         f"{_pt2_bytes(out)} bytes | Tacotron2ServingBundle vs live "
         f"tts(out_int16=True): max {lsb} LSB (gate {BUNDLE_LSB}) | launches "
-        f"{launches} | {audio_s:.2f} s of audio: bundle {bundle_s:.2f} s "
+        f"{launches}, {fused_words} | {audio_s:.2f} s of audio: bundle "
+        f"{bundle_s:.2f} s "
         f"({audio_s / bundle_s:.1f}x real time), live (its first call, "
         f"eager decode) {live_s:.2f} s | {smi}")
     return dict(launches=launches, lsb=lsb, export_s=export_s)
@@ -4203,8 +4262,11 @@ def phase_gate_control(smi: str, t2_rtf: float) -> dict:
     with generator_calls() as calls:
         rb.reset_launches()
         mas_ops.reset_launches()
+        replays, before = m.graph_replays, t2_runs()
         waves = pipe.tts(prompts, **tts_kw)
         launches = dict(rb.LAUNCHES)
+    fused_words = t2_fused_check("gate-controlled tts()", before,
+                                 m.graph_replays - replays, packed=True)
     want = {"resblock1_wide": 27 * len(calls),
             "resblock1_narrow": 3 * len(calls)}
     if launches != want or mas_ops.LAUNCHES["mas"]:
@@ -4222,7 +4284,8 @@ def phase_gate_control(smi: str, t2_rtf: float) -> dict:
     log(f"[21 gate tts] tts(speaker_id=speakers, postprocess_mel=False, "
         f"out_int16=True): lengths = the calibrated ones {match}/{B}, "
         f"distinct stops {len(stops)} ({stops[0]}-{stops[-1]}) | "
-        f"generator calls (mel shapes) {calls} | launches {launches}, mas 0")
+        f"generator calls (mel shapes) {calls} | launches {launches}, mas 0 "
+        f"| {fused_words}")
 
     # the gate channel reaches only the gate: speakers B..2B-1 take
     # speakers 0..B-1's embedding with the gate channel zeroed
@@ -4915,6 +4978,152 @@ def phase_parallel(smi: str, prompts: list[str]) -> dict:
                 ("serving", serving))}
 
 
+# phase 23: max |fused - plain| / max |plain| of the mel and alignment
+# buffers over the timed steps in bf16 (the two round at other places and
+# the recurrence carries a difference on; the ragged-stop check of the cuda
+# tests holds the stops equal)
+T2_STEP_TOL = 0.03
+T2_STEP_SHAPES = ((16, 240), (1, 32))
+T2_STEP_BLOCKS = 12
+
+
+def _t2_step_case(B: int, T: int, seed: int = 0):
+    """The benchmark's Tacotron2 (40 speakers) seeded, in bf16 on the card,
+    its gate never firing, and encoder outputs of B rows at text T."""
+    from tts_arabic_torch.models import tacotron2 as t2
+    cfg = t2.Tacotron2Config(num_speakers=40, decoder_max_step=3000)
+    model = t2.init_tacotron2(t2.Tacotron2(cfg), seed).eval().cuda()
+    with torch.no_grad():
+        model.decoder.gate_layer.linear_layer.bias.fill_(-100.0)
+    g = torch.Generator().manual_seed(seed)
+    tok = torch.randint(1, cfg.n_symbols, (B, T), generator=g).cuda()
+    lens = torch.full((B,), T, dtype=torch.long).cuda()
+    with torch.no_grad():
+        enc = model.encode_infer(tok, lens, torch.arange(B).cuda() % 40,
+                                 dtype=torch.bfloat16)
+    return model, enc
+
+
+def _t2_step_graph(model, enc, plain: bool):
+    """One decode block recorded as a CUDA graph on fresh carry and
+    buffers, through the kernels or the plain step. -> (graph, carry,
+    bufs, reset)."""
+    from tts_arabic_torch.models import tacotron2 as t2
+    from tts_arabic_torch.ops import tacotron2_step as fused
+    n = 3000
+    carry = model.init_decode_carry(enc["memory"])
+    bufs = model.decode_buffers(enc["memory"], n)
+    masks = model.prenet_masks(n, enc["memory"].shape[0], "cuda")
+    limit = torch.full((1,), n, dtype=torch.long, device="cuda")
+    model.start_segment(carry, limit)
+    c0 = {k: v.clone() for k, v in carry.items()}
+
+    def block():
+        if plain:
+            fused._plain_steps(model, carry, enc, bufs,
+                               model.decoder_weights(torch.bfloat16), masks,
+                               limit, t2.DECODE_BLOCK)
+        else:
+            model.decode_block(carry, enc, bufs, masks, limit)
+
+    def reset():
+        for k, v in c0.items():
+            carry[k].copy_(v)
+        for v in bufs.values():
+            v.zero_()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.no_grad(), torch.cuda.stream(side):
+        block()
+    torch.cuda.current_stream().wait_stream(side)
+    reset()
+    graph = torch.cuda.CUDAGraph()
+    with torch.no_grad(), torch.cuda.graph(graph):
+        block()
+    reset()
+    return graph, carry, bufs, reset
+
+
+def phase_tacotron2_step(smi: str) -> dict:
+    """Phase 23: the fused decode step against the plain step, both
+    graphed, at T2_STEP_SHAPES. Returns the cell's shape's record."""
+    from port_bench import yardstick_tacotron2 as yt2
+    from tts_arabic_torch.models import tacotron2 as t2
+    from tts_arabic_torch.ops import tacotron2_step as fused
+    record = {}
+    for B, T in T2_STEP_SHAPES:
+        model, enc = _t2_step_case(B, T)
+        cfg = dataclasses.asdict(model.config)
+        bound_us = yt2.decode_step_bound_s(cfg, B, T, "bfloat16") * 1e6
+        steps = T2_STEP_BLOCKS * t2.DECODE_BLOCK
+        got = {}
+        for label, plain in (("plain", True), ("kernels", False),
+                             ("kernels2", False), ("plain2", True)):
+            graph, carry, bufs, reset = _t2_step_graph(model, enc, plain)
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            torch.cuda.synchronize()
+            runs = fused.device_runs("cuda")
+            start.record()
+            for _ in range(T2_STEP_BLOCKS):
+                graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            ran = (fused.device_runs("cuda") - runs).tolist()
+            want = ([0] * len(fused.RUNS) if plain else
+                    [steps] * fused.KERNELS_PER_STEP + [T2_STEP_BLOCKS] * 2)
+            if ran != want:
+                raise AssertionError(
+                    f"phase 23 {label}: the card ran "
+                    f"{dict(zip(fused.RUNS, ran))}, expected {want}")
+            if not plain:
+                per_step = sum(ran[:fused.KERNELS_PER_STEP]) / steps
+            us = start.elapsed_time(end) * 1e3 / steps
+            if int(carry["s"]) != steps or not bool(carry["go"]):
+                raise AssertionError(f"phase 23 {label}: s {int(carry['s'])}"
+                                     f", expected {steps} steps")
+            got[label] = (us, {k: v[:, :steps].float().clone()
+                               for k, v in bufs.items()},
+                          carry["lengths"].clone())
+            if label == "kernels":
+                reset()
+                prof = profiled(graph.replay)
+                n_k, by_name = (0, {}) if prof is None else (
+                    prof[3], prof[1])
+            del graph
+        kern, plain = got["kernels"], got["plain"]
+        errs = {k: float((kern[1][k] - plain[1][k]).abs().max()
+                         / plain[1][k].abs().max()) for k in ("mel", "align")}
+        if (not torch.equal(kern[2], plain[2])
+                or max(errs.values()) > T2_STEP_TOL):
+            raise AssertionError(f"phase 23 [{B}, {T}]: lengths "
+                                 f"{kern[2].tolist()} vs {plain[2].tolist()}"
+                                 f", errors {errs}")
+        k_us = min(got["kernels"][0], got["kernels2"][0])
+        p_us = min(got["plain"][0], got["plain2"][0])
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        log(f"[23 tacotron2 step] [{B}, {T}] bf16, 40 speakers, "
+            f"{steps} graphed steps: kernels "
+            f"{got['kernels'][0]:.2f} / {got['kernels2'][0]:.2f} us a step, "
+            f"plain {got['plain'][0]:.2f} / {got['plain2'][0]:.2f}, bound "
+            f"{bound_us:.2f} ({100 * bound_us / k_us:.1f}% of the kernels' "
+            f"step) | {per_step:.2f} kernel launches a step as the card "
+            f"counts them (each of {fused.KERNELS_PER_STEP} once), plus a "
+            f"pack and a preparation a block; the profiler recorded "
+            f"{n_k / t2.DECODE_BLOCK:.2f} device ops a step | mel err "
+            f"{errs['mel']:.2e}, align err "
+            f"{errs['align']:.2e} | top: "
+            + "; ".join(f"{n} {v:.3f} ms" for n, v in top) + f" | {smi}")
+        if (B, T) == T2_STEP_SHAPES[0]:
+            record = {"ms": k_us / 1e3, "plain_ms": p_us / 1e3,
+                      "bound_ms": bound_us / 1e3,
+                      "launches_per_step": per_step,
+                      "max_rel_err": max(errs.values())}
+        del model, enc
+        torch.cuda.empty_cache()
+    return record
+
+
 def main() -> int:
     global T_START
     T_START = time.perf_counter()
@@ -4996,6 +5205,7 @@ def main() -> int:
         f"{time.perf_counter() - t1:.1f} s)")
     gate_launches, gate_timed = phase_gate_control(smi, t2_rtf)
     par = phase_parallel(smi, prompts)
+    t2_step = phase_tacotron2_step(smi)
     replaces = {
         "resblock1_wide": "tts_arabic_tpu/ops/hifigan_pallas.py:153",
         "resblock1_narrow": "tts_arabic_tpu/ops/hifigan_pallas.py:547",
@@ -5057,6 +5267,13 @@ def main() -> int:
         # phase 22: each rank's launches, as above
         **{f"{path}_launches_per_rank": par[key]["mas"]
            for path, key in PAR_PATHS}})
+    # phase 23: the fused decode step (replaces no TPU kernel: added for
+    # the decode step), a step at the Tacotron2 cell's [16, 240]
+    kernels.append({
+        "name": "tacotron2_step", "route": "cuda",
+        "source": "tts_arabic_torch/csrc/tacotron2_step.cu",
+        "replaces": "none: added for the decode step", **t2_step,
+        "bound_by": "bytes", "library_ms": None})
     log(smi)
     log(f"[smoke] every phase passed in {time.perf_counter() - T_START:.1f} "
         "s")

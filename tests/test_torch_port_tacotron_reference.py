@@ -207,8 +207,9 @@ def recording_cleared():
 def test_tts_spans_and_counts(built, recording_cleared):
     """tts() of four texts at batch size 3 under recording(): one `tts`
     span, two of each per-batch stage under it with the call's id, the
-    decode's `decode_steps` a multiple of the block, `rows` and
-    `text_len` the padded batch's, `frames_vocoded` rows x bucket,
+    decode's `decode_steps` a multiple of the block, `fused_steps` 0 (the
+    CPU's plain step), `rows` and `text_len` the padded batch's,
+    `frames_vocoded` rows x bucket,
     `frames_kept` the waves' own frames; the waves bit-equal to the same
     call with recording off, which records nothing."""
     from tts_arabic_torch.models.tacotron2 import DECODE_BLOCK
@@ -239,7 +240,10 @@ def test_tts_spans_and_counts(built, recording_cleared):
     assert [s.counts for s in by["tts.encode"]] == [{}, {}]
     assert [s.counts for s in by["tts.denoise"]] == [{}, {}]
     for s in by["tts.decode"]:
-        assert set(s.counts) == {"decode_steps", "rows", "text_len"}
+        assert set(s.counts) == {"decode_steps", "fused_steps", "rows",
+                                 "text_len"}
+        # the CPU runs the plain step: no step on the fused kernels
+        assert s.counts["fused_steps"] == 0
         assert s.counts["rows"] == 3 and s.counts["text_len"] % 16 == 0
         assert s.counts["decode_steps"] % DECODE_BLOCK == 0
         assert 0 < s.counts["decode_steps"] <= CAP + DECODE_BLOCK

@@ -38,6 +38,11 @@ The prenet dropout draws its masks for every step of a call up front
 its device-side `t`: a step's mask depends only on the call and on `t`,
 as in JAX, where the step folds `t` into one key. No generator state
 lives inside a block.
+
+On the card a block's steps run as the fused step's hand-written kernels
+(`ops.tacotron2_step`, `csrc/tacotron2_step.cu`: five launches a step in
+place of some seventy ATen, cuBLAS and cuDNN ones); `_predicated_step` is
+their plain version, which the CPU runs.
 """
 from __future__ import annotations
 
@@ -49,6 +54,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import tacotron2_step as fused_step
 from ..runtime.profiling import count, enabled, span
 from .layers import dropout, init_weights, sequence_mask
 
@@ -379,29 +385,41 @@ class Tacotron2(nn.Module):
 
     # ---- decoder core --------------------------------------------------------
 
+    def decoder_params(self) -> dict:
+        """The decoder step's parameters under `decoder_weights`' keys, as
+        the module holds them; `out_w` and `out_b` each the pair (mel
+        projection, gate) that `decoder_weights` stacks."""
+        d = self.decoder
+        a = d.attention_layer
+
+        def cell(m):
+            return (m.weight_ih, m.weight_hh, m.bias_ih, m.bias_hh)
+        proj, gate = d.linear_projection.linear_layer, d.gate_layer.linear_layer
+        return {
+            "prenet": [l.linear_layer.weight for l in d.prenet.layers],
+            "attention_rnn": cell(d.attention_rnn),
+            "decoder_rnn": cell(d.decoder_rnn),
+            "query": a.query_layer.linear_layer.weight,
+            "v": a.v.linear_layer.weight,
+            "location_conv": a.location_layer.location_conv.conv.weight,
+            "location_dense":
+                a.location_layer.location_dense.linear_layer.weight,
+            "out_w": (proj.weight, gate.weight),
+            "out_b": (proj.bias, gate.bias),
+        }
+
     def decoder_weights(self, dtype: torch.dtype) -> dict:
         """The decoder's weights in `dtype` (the same tensors in float32),
         the mel and gate projections stacked into one."""
-        d = self.decoder
-        a = d.attention_layer
-        cast = lambda p: p.to(dtype)  # noqa: E731
-
-        def cell(m):
-            return tuple(cast(p) for p in (m.weight_ih, m.weight_hh,
-                                           m.bias_ih, m.bias_hh))
-        proj, gate = d.linear_projection.linear_layer, d.gate_layer.linear_layer
-        return {
-            "prenet": [cast(l.linear_layer.weight) for l in d.prenet.layers],
-            "attention_rnn": cell(d.attention_rnn),
-            "decoder_rnn": cell(d.decoder_rnn),
-            "query": cast(a.query_layer.linear_layer.weight),
-            "v": cast(a.v.linear_layer.weight),
-            "location_conv": cast(a.location_layer.location_conv.conv.weight),
-            "location_dense":
-                cast(a.location_layer.location_dense.linear_layer.weight),
-            "out_w": cast(torch.cat([proj.weight, gate.weight])),
-            "out_b": cast(torch.cat([proj.bias, gate.bias])),
-        }
+        w = {}
+        for key, p in self.decoder_params().items():
+            if key in ("out_w", "out_b"):
+                w[key] = torch.cat(p).to(dtype)
+            elif isinstance(p, torch.Tensor):
+                w[key] = p.to(dtype)
+            else:
+                w[key] = type(p)(x.to(dtype) for x in p)
+        return w
 
     def prenet_masks(self, n_steps: int, batch: int, device,
                      generator: Optional[torch.Generator] = None):
@@ -655,13 +673,13 @@ class Tacotron2(nn.Module):
                      limit: torch.Tensor) -> None:
         """DECODE_BLOCK predicated steps from `carry`, which is updated in
         place (the buffers too). Inputs and outputs are the tensors given,
-        so a CUDA graph can record one block and replay it."""
-        w = self.decoder_weights(enc["memory"].dtype)
-        c = dict(carry)
-        for _ in range(DECODE_BLOCK):
-            c = self._predicated_step(c, enc, bufs, w, masks, limit)
-        for key, val in carry.items():
-            val.copy_(c[key])
+        so a CUDA graph can record one block and replay it. The steps run
+        through `ops.tacotron2_step.decode_steps`, which casts the weights
+        once a block from the parameters as they are then: the plain
+        `_predicated_step` on the CPU, the fused step's kernels on the
+        card."""
+        fused_step.decode_steps(self, carry, enc, bufs, masks, limit,
+                                DECODE_BLOCK)
 
     def run_segment(self, carry: dict, enc: dict, bufs: dict,
                     masks: Optional[torch.Tensor], limit: torch.Tensor,
@@ -698,7 +716,10 @@ class Tacotron2(nn.Module):
         Spans (`runtime.profiling`): `tts.encode`, and `tts.decode` around
         the blocks and the postnet, counting `decode_steps` (the blocks
         run x DECODE_BLOCK, known on the host without a device read),
-        `rows` and `text_len` (the padded batch's shape)."""
+        `fused_steps` (the steps of them that ran on the fused step's
+        kernels, from the counts the kernels keep on the card: read after
+        the decode, whose flag reads have already waited for it), `rows`
+        and `text_len` (the padded batch's shape)."""
         B, T_txt = tokens.shape
         dev = tokens.device
         if token_lens is None:
@@ -712,10 +733,13 @@ class Tacotron2(nn.Module):
             bufs = self.decode_buffers(enc["memory"], max_steps)
             masks = self.prenet_masks(max_steps, B, dev, generator)
             limit = torch.full((1,), max_steps, dtype=torch.long, device=dev)
+            runs = (fused_step.device_runs(enc["memory"]) if enabled()
+                    else None)
             blocks = (runner or self.run_segment)(carry, enc, bufs, masks,
                                                   limit)
             if enabled() and blocks is not None:
-                count(decode_steps=blocks * DECODE_BLOCK, rows=B,
+                count(decode_steps=blocks * DECODE_BLOCK,
+                      fused_steps=fused_step.steps_since(runs), rows=B,
                       text_len=T_txt)
             return self.finish_infer(bufs, carry["lengths"], max_steps)
 

@@ -141,5 +141,11 @@ def library() -> ctypes.CDLL:
         lib.mas_forward.restype = i
         lib.mas_scratch_words.argtypes = [i, i]
         lib.mas_scratch_words.restype = i
+        lib.tacotron2_step.argtypes = [i, p, p, p, i, p]
+        lib.tacotron2_step.restype = i
+        lib.tacotron2_pack_bf16.argtypes = [i, p, p, p, p]
+        lib.tacotron2_pack_bf16.restype = i
+        lib.tacotron2_step_runs.argtypes = [i, p, p]
+        lib.tacotron2_step_runs.restype = i
         _lib = lib
         return lib

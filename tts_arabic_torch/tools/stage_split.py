@@ -22,6 +22,9 @@ and prints its result line as it does. A `--trace 1` run also writes to
   innermost span open when the host launched each (the profiler's
   correlation ids): their seconds, those of PyTorch's elementwise
   kernels, and the 12 operations with the most time for each span;
+- `stage_counts`: each span name's counts (`span(..., **counts)`,
+  `profiling.count`) summed over the window's spans, e.g. the Tacotron2
+  decode's `decode_steps` beside its `fused_steps`;
 - `window_s`, `busy_s`, `idle_s`, `n_gaps`, `dtoh_s` (the copies back),
   `n_spans`, `dropped`.
 """
@@ -120,9 +123,12 @@ def split(trace, prof) -> dict:
            "idle_s": sum(b - a for a, b in gaps), "n_gaps": len(gaps),
            "dtoh_s": trace.op_seconds("DtoH"),
            "idle_by_span": idle_by_span(gaps, spans),
-           "stage_device_s": {}, "stage_host_s": {},
+           "stage_device_s": {}, "stage_host_s": {}, "stage_counts": {},
            "n_spans": len(spans), "dropped": profiling.dropped()}
     for s in spans:
+        counts = out["stage_counts"].setdefault(s.name, {})
+        for key, n in s.counts.items():
+            counts[key] = counts.get(key, 0) + n
         if s.device_ms is not None:
             out["stage_device_s"][s.name] = (
                 out["stage_device_s"].get(s.name, 0.0) + s.device_ms * 1e-3)
